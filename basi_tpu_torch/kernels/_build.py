@@ -1,0 +1,103 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+All sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
+library with a plain C interface, ``build/kernels/<hash>/libbasi_kernels.so``
+under the checkout, loaded with ``ctypes``. The directory name is a hash of
+the sources and flags, so an edit rebuilds and an unchanged tree reuses the
+library. Nothing here runs at import time: the first kernel launch builds.
+A failed build raises; it never returns ``None``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argtypes; every entry point returns cudaGetLastError().
+SIGNATURES = {
+    # x, y, n, h, w, c, f, stream
+    "basi_upsample_int_bf16": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, y, b, h, w, oh, ow, stream
+    "basi_upsample_sigmoid_f32": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "basi_upsample_sigmoid_bf16": (_P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# Filled by the first load: library path, whether it was compiled in this
+# process, compile seconds and nvcc's output (registers/spills per kernel).
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(f"nvcc not found on PATH or at {path}")
+    return str(path)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, compiled on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _load()
+        return _lib
+
+
+def _load() -> ctypes.CDLL:
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    lib_path = out_dir / "libbasi_kernels.so"
+    info = {"path": str(lib_path), "compiled": False, "seconds": 0.0,
+            "log": ""}
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"libbasi_kernels.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        info.update(compiled=True, seconds=time.perf_counter() - t0,
+                    log=proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{info['log']}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.basi_error_string.argtypes = [ctypes.c_int]
+    lib.basi_error_string.restype = ctypes.c_char_p
+    build_info.update(info)
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        msg = library().basi_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,121 @@
+"""BASINet, kernels mechanism (port of ``basi_tpu/models/basi.py``).
+
+backbone -> FPN -> {saliency, unified mask features, cell-grid instance
+head}. Takes an NHWC float image and returns NHWC outputs, as the JAX model
+does; inside, tensors are NCHW in ``channels_last`` memory so the NHWC
+views are free. Inference only: BN on running statistics, no deep
+supervision, no candidate-mask tensor (selection applies only the top-k
+kernels, ``ops.nms.select_instances_from_kernels``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn as nn
+
+from basi_tpu_torch.models.fpn import FPN
+from basi_tpu_torch.models.heads import (
+    InstanceKernelHead,
+    MaskFeatureHead,
+    SaliencyHead,
+)
+from basi_tpu_torch.models.resnet import BLOCK_KIND, STAGE_SIZES, ResNetTrunk
+
+# Prediction convs start near zero, as the JAX heads initialise them; the
+# objectness bias starts at the focal prior -log((1 - pi) / pi), pi = 0.01.
+_PRED_CONVS = ("saliency.fuse", "instance.score", "instance.kernel")
+_PRED_STD = 0.01
+_FOCAL_PRIOR_BIAS = -4.595
+
+
+class BASIOutputs(NamedTuple):
+    """Raw model outputs (logits), NHWC views."""
+
+    saliency_logits: torch.Tensor  # (N, H/4, W/4, 1) fused saliency
+    cell_scores: torch.Tensor  # (N, S, S, 1) objectness logits
+    cell_kernels: torch.Tensor  # (N, S, S, E) dynamic mask kernels
+    mask_feats: torch.Tensor  # (N, H/4, W/4, E) unified mask features
+
+
+class BASINet(nn.Module):
+    def __init__(self, backbone: str = "resnet50", fpn_channels: int = 256,
+                 mask_channels: int = 64, grid_size: int = 16):
+        super().__init__()
+        if backbone.startswith("vgg"):
+            raise NotImplementedError(f"backbone {backbone!r} not yet ported")
+        if backbone not in STAGE_SIZES:
+            raise ValueError(f"unknown backbone {backbone!r}")
+        self.backbone_name = backbone
+        self.stage_sizes = STAGE_SIZES[backbone]
+        self.backbone = ResNetTrunk(self.stage_sizes,
+                                    BLOCK_KIND.get(backbone, "bottleneck"))
+        self.fpn = FPN(self.backbone.out_channels, fpn_channels)
+        self.saliency = SaliencyHead(fpn_channels, 64, 4)
+        self.maskfeat = MaskFeatureHead(fpn_channels, 128, mask_channels, 4)
+        self.instance = InstanceKernelHead(fpn_channels, 128, mask_channels,
+                                           grid_size, 3)
+
+    def forward(self, image: torch.Tensor) -> BASIOutputs:
+        """image: (N, H, W, 3) normalized, in the model's dtype."""
+        x = image.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        pyramid = self.fpn(list(self.backbone(x)))
+        sal = self.saliency(pyramid)
+        mask_feats = self.maskfeat(pyramid)
+        scores, kernels = self.instance(pyramid[1])  # P3, stride 8
+
+        def nhwc(t):
+            return t.permute(0, 2, 3, 1)
+
+        return BASIOutputs(nhwc(sal), nhwc(scores), nhwc(kernels),
+                           nhwc(mask_feats))
+
+
+def check_model_config(mcfg) -> None:
+    """Raise NotImplementedError for model settings outside the port."""
+    if mcfg.instance_mechanism != "kernels":
+        raise NotImplementedError(
+            f"model.instance_mechanism={mcfg.instance_mechanism!r} not yet ported")
+    if mcfg.refine:
+        raise NotImplementedError("model.refine not yet ported")
+
+
+def create_model(mcfg, device="cpu",
+                 generator: torch.Generator | None = None) -> BASINet:
+    """BASINet for a ``basi_tpu.config.ModelConfig``, in eval mode, f32,
+    ``channels_last``, with random weights from ``generator`` (seed 0 when
+    omitted); load real weights with ``convert.load_jax_variables`` or
+    ``load_state_dict``."""
+    check_model_config(mcfg)
+    with torch.device("meta"):  # no throwaway default init
+        model = BASINet(mcfg.backbone, mcfg.fpn_channels, mcfg.mask_channels,
+                        mcfg.grid_size)
+    model = model.to_empty(device=device)
+    init_weights(model, generator or torch.Generator().manual_seed(0))
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+@torch.no_grad()
+def init_weights(model: BASINet, generator: torch.Generator) -> None:
+    """Fill every parameter and buffer from ``generator`` (a CPU
+    generator: the same seed gives the same weights on every device).
+    Convs: N(0, 1/fan_in), zero bias; prediction convs N(0, 0.01^2); norms
+    identity; BN running stats (0, 1)."""
+    def normal(t, std):
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Conv2d):
+            pred = name in _PRED_CONVS or name.startswith("saliency.out")
+            normal(m.weight, _PRED_STD if pred else m.weight[0].numel() ** -0.5)
+            if m.bias is not None:
+                m.bias.fill_(_FOCAL_PRIOR_BIAS if name == "instance.score" else 0.0)
+        elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
+            if isinstance(m, nn.BatchNorm2d):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()

@@ -1,0 +1,106 @@
+"""BASI heads (port of ``basi_tpu/models/heads.py``), inference forms.
+
+NCHW tensors in ``channels_last`` memory; every resize goes through
+``ops.resize`` so bf16 integer-factor upsamples reach the ``upsample_int``
+kernel on the card. Module names follow the JAX package's parameter tree as
+``export_basinet`` maps it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from basi_tpu_torch.ops.resize import resize_nchw
+
+GN_GROUPS = 32
+GN_EPS = 1e-5
+
+
+def coord_features(n: int, h: int, w: int, dtype: torch.dtype,
+                   device) -> torch.Tensor:
+    """Normalized (-1..1) coordinate maps, (N, 2, H, W), channel order
+    (x, y) — CoordConv. Built in f32, then cast."""
+    ys = torch.linspace(-1.0, 1.0, h, dtype=torch.float32, device=device)
+    xs = torch.linspace(-1.0, 1.0, w, dtype=torch.float32, device=device)
+    grid = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)])
+    return grid[None].expand(n, 2, h, w).to(dtype)
+
+
+def _cat_coords(x: torch.Tensor) -> torch.Tensor:
+    n, _, h, w = x.shape
+    coords = coord_features(n, h, w, x.dtype, x.device)
+    return torch.cat([x, coords], dim=1).contiguous(
+        memory_format=torch.channels_last)
+
+
+class SaliencyHead(nn.Module):
+    """Per level: 3x3 tower + ReLU, resized to /4; the concat of all levels
+    goes through a 1x1 ``fuse`` conv to the fused /4 logits. The per-level
+    ``out{i}`` convs exist for checkpoint compatibility: they feed only the
+    training loss's deep supervision, which inference skips."""
+
+    def __init__(self, ch_in: int = 256, ch: int = 64, levels: int = 4):
+        super().__init__()
+        for i in range(levels):
+            setattr(self, f"tower{i}", nn.Conv2d(ch_in, ch, 3, padding=1))
+            setattr(self, f"out{i}", nn.Conv2d(ch, 1, 1))
+        self.fuse = nn.Conv2d(ch * levels, 1, 1)
+        self.levels = levels
+
+    def forward(self, pyramid):
+        base_hw = pyramid[0].shape[-2:]
+        feats = [resize_nchw(F.relu(getattr(self, f"tower{i}")(p)), base_hw)
+                 for i, p in enumerate(pyramid)]
+        return self.fuse(torch.cat(feats, dim=1))
+
+
+class MaskFeatureHead(nn.Module):
+    """Unified /4 mask features: per level 3x3 conv + GN + ReLU resized to
+    /4 and summed (CoordConv at the coarsest level), then a 1x1 to E."""
+
+    def __init__(self, ch_in: int = 256, ch: int = 128, embed: int = 64,
+                 levels: int = 4):
+        super().__init__()
+        for i in range(levels):
+            cin = ch_in + (2 if i == levels - 1 else 0)
+            setattr(self, f"level{i}", nn.Conv2d(cin, ch, 3, padding=1))
+            setattr(self, f"gn{i}", nn.GroupNorm(GN_GROUPS, ch, eps=GN_EPS))
+        self.embed = nn.Conv2d(ch, embed, 1)
+        self.levels = levels
+
+    def forward(self, pyramid):
+        base_hw = pyramid[0].shape[-2:]
+        acc = None
+        for i, p in enumerate(pyramid):
+            if i == self.levels - 1:
+                p = _cat_coords(p)
+            f = F.relu(getattr(self, f"gn{i}")(getattr(self, f"level{i}")(p)))
+            f = resize_nchw(f, base_hw)
+            acc = f if acc is None else acc + f
+        return self.embed(acc)
+
+
+class InstanceKernelHead(nn.Module):
+    """Cell-grid instance head: P3 + CoordConv resized to the S x S grid, a
+    3-deep conv/GN/ReLU tower, then per-cell objectness logits (N, 1, S, S)
+    and dynamic mask kernels (N, E, S, S)."""
+
+    def __init__(self, ch_in: int = 256, ch: int = 128, embed: int = 64,
+                 grid: int = 16, depth: int = 3):
+        super().__init__()
+        for i in range(depth):
+            cin = (ch_in + 2) if i == 0 else ch
+            setattr(self, f"tower{i}", nn.Conv2d(cin, ch, 3, padding=1))
+            setattr(self, f"gn{i}", nn.GroupNorm(GN_GROUPS, ch, eps=GN_EPS))
+        self.score = nn.Conv2d(ch, 1, 3, padding=1)
+        self.kernel = nn.Conv2d(ch, embed, 3, padding=1)
+        self.grid = grid
+        self.depth = depth
+
+    def forward(self, feat):
+        x = resize_nchw(_cat_coords(feat), (self.grid, self.grid))
+        for i in range(self.depth):
+            x = F.relu(getattr(self, f"gn{i}")(getattr(self, f"tower{i}")(x)))
+        return self.score(x), self.kernel(x)
