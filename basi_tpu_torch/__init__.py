@@ -2,8 +2,10 @@
 
 The JAX package ``basi_tpu`` stays the reference. This package imports
 ``torch`` and never ``jax``; of ``basi_tpu`` it uses only the jax-free
-``basi_tpu.config`` and ``basi_tpu.convert.torch_export``. Exports are lazy,
-so ``import basi_tpu_torch`` loads nothing heavy.
+``basi_tpu.config``, ``basi_tpu.convert.torch_export`` and
+``basi_tpu.convert.full_import``, and the numpy-only
+``basi_tpu.data.datasets``. Exports are lazy, so ``import basi_tpu_torch``
+loads nothing heavy.
 """
 
 _EXPORTS = {
@@ -13,6 +15,9 @@ _EXPORTS = {
     "BASINet": "basi_tpu_torch.models.basi",
     "create_model": "basi_tpu_torch.models.basi",
     "load_jax_variables": "basi_tpu_torch.convert",
+    "load_jax_train_state": "basi_tpu_torch.convert",
+    "to_jax_variables": "basi_tpu_torch.convert",
+    "Trainer": "basi_tpu_torch.train.loop",
 }
 
 

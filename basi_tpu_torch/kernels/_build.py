@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, ``build/kernels/<hash>/libbasi_kernels.so``
-under the checkout, loaded with ``ctypes``. The directory name is a hash of
+Each source compiles with its own ``nvcc`` for Hopper (``sm_90a``), all
+started together, and the objects link into one shared library with a plain
+C interface, ``build/kernels/<hash>/libbasi_kernels.so`` under the checkout,
+loaded with ``ctypes``. The directory name is a hash of
 the sources and flags, so an edit rebuilds and an unchanged tree reuses the
 library. Nothing here runs at import time: the first kernel launch builds.
 A failed build raises; it never returns ``None``.
@@ -22,13 +23,19 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_F3 = ctypes.POINTER(ctypes.c_float)  # 3 host floats
 # C entry point -> argtypes; every entry point returns cudaGetLastError().
 SIGNATURES = {
     # x, y, n, h, w, c, f, stream
     "basi_upsample_int_bf16": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # g, gx, n, h, w, c, f, stream (h, w: the input's, gx's)
+    "basi_upsample_int_bwd_bf16": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, flip, y, n, h, w, inv_std, neg_mean, stream
+    "basi_normalize_flip_bf16": (_P, _P, _P, _I, _I, _I, _F3, _F3, _P),
+    "basi_normalize_flip_f32": (_P, _P, _P, _I, _I, _I, _F3, _F3, _P),
     # x, y, b, h, w, oh, ow, stream
     "basi_upsample_sigmoid_f32": (_P, _P, _I, _I, _I, _I, _I, _P),
     "basi_upsample_sigmoid_bf16": (_P, _P, _I, _I, _I, _I, _I, _P),
@@ -73,17 +80,39 @@ def _load() -> ctypes.CDLL:
             "log": ""}
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libbasi_kernels.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = os.getpid()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # One nvcc per source, all running at once; then one link.
+        jobs = []
+        for src in sources:
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}")
+        tmp = out_dir / f"libbasi_kernels.{tag}.tmp.so"
+        if not failed:
+            cmd = [_nvcc(), "-shared", "-o", str(tmp),
+                   *(str(obj) for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{logs[-1]}")
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
         info.update(compiled=True, seconds=time.perf_counter() - t0,
-                    log=proc.stdout + proc.stderr)
-        if proc.returncode != 0:
+                    log="".join(logs))
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{info['log']}")
+            raise RuntimeError("\n".join(failed))
         os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():

@@ -3,9 +3,14 @@
 backbone -> FPN -> {saliency, unified mask features, cell-grid instance
 head}. Takes an NHWC float image and returns NHWC outputs, as the JAX model
 does; inside, tensors are NCHW in ``channels_last`` memory so the NHWC
-views are free. Inference only: BN on running statistics, no deep
-supervision, no candidate-mask tensor (selection applies only the top-k
-kernels, ``ops.nms.select_instances_from_kernels``).
+views are free. ``forward(image, train=...)``: eval runs BN on running
+statistics; train runs it on batch statistics, updates the running ones
+(flax's rule) and adds the saliency deep-supervision outputs. Activations
+take the image's dtype while the params may stay f32 (the JAX package's
+mixed precision, ``models/layers.py``). No candidate-mask tensor in either
+mode: selection applies only the top-k kernels
+(``ops.nms.select_instances_from_kernels``) and the loss only the positive
+cells' kernels.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ class BASIOutputs(NamedTuple):
     cell_scores: torch.Tensor  # (N, S, S, 1) objectness logits
     cell_kernels: torch.Tensor  # (N, S, S, E) dynamic mask kernels
     mask_feats: torch.Tensor  # (N, H/4, W/4, E) unified mask features
+    # per-level deep supervision (N, H/4, W/4, 1), train mode only
+    saliency_aux: tuple[torch.Tensor, ...] = ()
 
 
 class BASINet(nn.Module):
@@ -57,12 +64,15 @@ class BASINet(nn.Module):
         self.instance = InstanceKernelHead(fpn_channels, 128, mask_channels,
                                            grid_size, 3)
 
-    def forward(self, image: torch.Tensor) -> BASIOutputs:
-        """image: (N, H, W, 3) normalized, in the model's dtype."""
+    def forward(self, image: torch.Tensor,
+                train: bool | None = None) -> BASIOutputs:
+        """image: (N, H, W, 3) normalized, in the compute dtype. ``train``
+        defaults to the module's mode (``create_model(..., train=True)``)."""
+        train = self.training if train is None else train
         x = image.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        pyramid = self.fpn(list(self.backbone(x)))
-        sal = self.saliency(pyramid)
+        pyramid = self.fpn(list(self.backbone(x, train)))
+        sal, aux = self.saliency(pyramid, with_aux=train)
         mask_feats = self.maskfeat(pyramid)
         scores, kernels = self.instance(pyramid[1])  # P3, stride 8
 
@@ -70,7 +80,7 @@ class BASINet(nn.Module):
             return t.permute(0, 2, 3, 1)
 
         return BASIOutputs(nhwc(sal), nhwc(scores), nhwc(kernels),
-                           nhwc(mask_feats))
+                           nhwc(mask_feats), tuple(nhwc(a) for a in aux))
 
 
 def check_model_config(mcfg) -> None:
@@ -83,18 +93,20 @@ def check_model_config(mcfg) -> None:
 
 
 def create_model(mcfg, device="cpu",
-                 generator: torch.Generator | None = None) -> BASINet:
-    """BASINet for a ``basi_tpu.config.ModelConfig``, in eval mode, f32,
-    ``channels_last``, with random weights from ``generator`` (seed 0 when
-    omitted); load real weights with ``convert.load_jax_variables`` or
-    ``load_state_dict``."""
+                 generator: torch.Generator | None = None,
+                 train: bool = False) -> BASINet:
+    """BASINet for a ``basi_tpu.config.ModelConfig``, f32, ``channels_last``,
+    with random weights from ``generator`` (seed 0 when omitted), in eval
+    mode (serving) or, with ``train``, in train mode with f32 master params
+    for ``train.step``; load real weights with ``convert.load_jax_variables``
+    or ``load_state_dict``."""
     check_model_config(mcfg)
     with torch.device("meta"):  # no throwaway default init
         model = BASINet(mcfg.backbone, mcfg.fpn_channels, mcfg.mask_channels,
                         mcfg.grid_size)
     model = model.to_empty(device=device)
     init_weights(model, generator or torch.Generator().manual_seed(0))
-    return model.to(memory_format=torch.channels_last).eval()
+    return model.to(memory_format=torch.channels_last).train(train)
 
 
 @torch.no_grad()

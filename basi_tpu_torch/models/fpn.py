@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch.nn as nn
 
+from basi_tpu_torch.models.layers import Conv2d
 from basi_tpu_torch.ops.resize import resize_nchw
 
 
@@ -13,8 +14,8 @@ class FPN(nn.Module):
     def __init__(self, in_chs, ch: int = 256):
         super().__init__()
         for i, c in enumerate(in_chs):
-            setattr(self, f"lateral{i}", nn.Conv2d(c, ch, 1))
-            setattr(self, f"smooth{i}", nn.Conv2d(ch, ch, 3, padding=1))
+            setattr(self, f"lateral{i}", Conv2d(c, ch, 1))
+            setattr(self, f"smooth{i}", Conv2d(ch, ch, 3, padding=1))
         self.n = len(in_chs)
 
     def forward(self, feats):

@@ -1,9 +1,10 @@
-"""BASI heads (port of ``basi_tpu/models/heads.py``), inference forms.
+"""BASI heads (port of ``basi_tpu/models/heads.py``).
 
 NCHW tensors in ``channels_last`` memory; every resize goes through
 ``ops.resize`` so bf16 integer-factor upsamples reach the ``upsample_int``
-kernel on the card. Module names follow the JAX package's parameter tree as
-``export_basinet`` maps it.
+kernel on the card. Convs and GroupNorm keep the JAX package's mixed
+precision (``models/layers.py``). Module names follow the JAX package's
+parameter tree as ``export_basinet`` maps it.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basi_tpu_torch.models.layers import Conv2d, GroupNorm
 from basi_tpu_torch.ops.resize import resize_nchw
 
 GN_GROUPS = 32
@@ -37,23 +39,29 @@ def _cat_coords(x: torch.Tensor) -> torch.Tensor:
 
 class SaliencyHead(nn.Module):
     """Per level: 3x3 tower + ReLU, resized to /4; the concat of all levels
-    goes through a 1x1 ``fuse`` conv to the fused /4 logits. The per-level
-    ``out{i}`` convs exist for checkpoint compatibility: they feed only the
-    training loss's deep supervision, which inference skips."""
+    goes through a 1x1 ``fuse`` conv to the fused /4 logits. With
+    ``with_aux`` (training) each level's 1x1 ``out{i}`` conv gives its own
+    logits, resized to /4: the loss's deep supervision."""
 
     def __init__(self, ch_in: int = 256, ch: int = 64, levels: int = 4):
         super().__init__()
         for i in range(levels):
-            setattr(self, f"tower{i}", nn.Conv2d(ch_in, ch, 3, padding=1))
-            setattr(self, f"out{i}", nn.Conv2d(ch, 1, 1))
-        self.fuse = nn.Conv2d(ch * levels, 1, 1)
+            setattr(self, f"tower{i}", Conv2d(ch_in, ch, 3, padding=1))
+            setattr(self, f"out{i}", Conv2d(ch, 1, 1))
+        self.fuse = Conv2d(ch * levels, 1, 1)
         self.levels = levels
 
-    def forward(self, pyramid):
+    def forward(self, pyramid, with_aux: bool = False):
+        """Returns (fused logits (N, 1, H/4, W/4), per-level logits at /4,
+        empty without ``with_aux``)."""
         base_hw = pyramid[0].shape[-2:]
-        feats = [resize_nchw(F.relu(getattr(self, f"tower{i}")(p)), base_hw)
-                 for i, p in enumerate(pyramid)]
-        return self.fuse(torch.cat(feats, dim=1))
+        feats, aux = [], []
+        for i, p in enumerate(pyramid):
+            f = F.relu(getattr(self, f"tower{i}")(p))
+            if with_aux:
+                aux.append(resize_nchw(getattr(self, f"out{i}")(f), base_hw))
+            feats.append(resize_nchw(f, base_hw))
+        return self.fuse(torch.cat(feats, dim=1)), aux
 
 
 class MaskFeatureHead(nn.Module):
@@ -65,9 +73,9 @@ class MaskFeatureHead(nn.Module):
         super().__init__()
         for i in range(levels):
             cin = ch_in + (2 if i == levels - 1 else 0)
-            setattr(self, f"level{i}", nn.Conv2d(cin, ch, 3, padding=1))
-            setattr(self, f"gn{i}", nn.GroupNorm(GN_GROUPS, ch, eps=GN_EPS))
-        self.embed = nn.Conv2d(ch, embed, 1)
+            setattr(self, f"level{i}", Conv2d(cin, ch, 3, padding=1))
+            setattr(self, f"gn{i}", GroupNorm(GN_GROUPS, ch, eps=GN_EPS))
+        self.embed = Conv2d(ch, embed, 1)
         self.levels = levels
 
     def forward(self, pyramid):
@@ -92,10 +100,10 @@ class InstanceKernelHead(nn.Module):
         super().__init__()
         for i in range(depth):
             cin = (ch_in + 2) if i == 0 else ch
-            setattr(self, f"tower{i}", nn.Conv2d(cin, ch, 3, padding=1))
-            setattr(self, f"gn{i}", nn.GroupNorm(GN_GROUPS, ch, eps=GN_EPS))
-        self.score = nn.Conv2d(ch, 1, 3, padding=1)
-        self.kernel = nn.Conv2d(ch, embed, 3, padding=1)
+            setattr(self, f"tower{i}", Conv2d(cin, ch, 3, padding=1))
+            setattr(self, f"gn{i}", GroupNorm(GN_GROUPS, ch, eps=GN_EPS))
+        self.score = Conv2d(ch, 1, 3, padding=1)
+        self.kernel = Conv2d(ch, embed, 3, padding=1)
         self.grid = grid
         self.depth = depth
 

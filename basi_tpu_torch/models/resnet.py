@@ -1,8 +1,10 @@
 """ResNet trunk returning C2..C5 (port of ``basi_tpu/models/resnet.py``).
 
 Module and state-dict names are torchvision's, so the JAX package's
-``export_basinet`` output loads with ``load_state_dict(strict=True)``. BN runs
-on running statistics (eps 1e-5). Only the conv7 stem is ported: the JAX
+``export_basinet`` output loads with ``load_state_dict(strict=True)``. BN
+(eps 1e-5) runs on running statistics, or with ``train=True`` on batch
+statistics with flax's running update (``models/layers.py``). Convs compute
+in the input's dtype. Only the conv7 stem is ported: the JAX
 package's ``s2d`` and ``conv7p8`` stems compute the same function from the
 same (7, 7, 3, 64) parameter, so every ``stem_mode`` runs conv7 here on raw
 3-channel input.
@@ -10,9 +12,14 @@ same (7, 7, 3, 64) parameter, so every ``stem_mode`` runs conv7 here on raw
 
 from __future__ import annotations
 
-import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from basi_tpu_torch.models.layers import (
+    BatchNorm2d,
+    Conv2d,
+    update_running_stats,
+)
 
 # Block counts, torchvision numbering (same table as the JAX package).
 STAGE_SIZES = {
@@ -39,10 +46,13 @@ class ConvBN(nn.Sequential):
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1):
         super().__init__(
-            nn.Conv2d(cin, cout, kernel, stride=stride,
-                      padding=(kernel - 1) // 2, bias=False),
-            nn.BatchNorm2d(cout, eps=BN_EPS),
+            Conv2d(cin, cout, kernel, stride=stride,
+                   padding=(kernel - 1) // 2, bias=False),
+            BatchNorm2d(cout, eps=BN_EPS),
         )
+
+    def forward(self, x, train: bool = False):
+        return self[1](self[0](x), train)
 
 
 class Bottleneck(nn.Module):
@@ -52,20 +62,20 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes, planes, stride=1, downsample=None):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4, eps=BN_EPS)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes, eps=BN_EPS)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
+                            bias=False)
+        self.bn2 = BatchNorm2d(planes, eps=BN_EPS)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = BatchNorm2d(planes * 4, eps=BN_EPS)
         self.downsample = downsample
 
-    def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+    def forward(self, x, train: bool = False):
+        identity = x if self.downsample is None else self.downsample(x, train)
+        out = F.relu(self.bn1(self.conv1(x), train))
+        out = F.relu(self.bn2(self.conv2(out), train))
+        out = self.bn3(self.conv3(out), train)
         return F.relu(out + identity)
 
 
@@ -76,17 +86,17 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes, planes, stride=1, downsample=None):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
-                               bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride=stride, padding=1,
+                            bias=False)
+        self.bn1 = BatchNorm2d(planes, eps=BN_EPS)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(planes, eps=BN_EPS)
         self.downsample = downsample
 
-    def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+    def forward(self, x, train: bool = False):
+        identity = x if self.downsample is None else self.downsample(x, train)
+        out = F.relu(self.bn1(self.conv1(x), train))
+        out = self.bn2(self.conv2(out), train)
         return F.relu(out + identity)
 
 
@@ -96,8 +106,8 @@ class ResNetTrunk(nn.Module):
     def __init__(self, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck"):
         super().__init__()
         self.block = BasicBlock if block == "basic" else Bottleneck
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm2d(64, eps=BN_EPS)
         self.inplanes = 64
         self.layer1 = self._make_layer(64, stage_sizes[0], stride=1)
         self.layer2 = self._make_layer(128, stage_sizes[1], stride=2)
@@ -120,11 +130,15 @@ class ResNetTrunk(nn.Module):
         exp = self.block.expansion
         return [64 * exp, 128 * exp, 256 * exp, 512 * exp]
 
-    def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x, train: bool = False):
+        x = F.relu(self.bn1(self.conv1(x), train))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        c2 = self.layer1(x)
-        c3 = self.layer2(c2)
-        c4 = self.layer3(c3)
-        c5 = self.layer4(c4)
-        return c2, c3, c4, c5
+        feats = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in layer:
+                x = block(x, train)
+            feats.append(x)
+        if train:
+            update_running_stats([m for m in self.modules()
+                                  if isinstance(m, BatchNorm2d)])
+        return tuple(feats)

@@ -7,7 +7,8 @@ Two dense 1-D interpolation matrices applied as einsums,
 with torch ``F.interpolate(mode='bilinear')`` coordinate conventions. bf16
 integer-factor (2/4/8) upsamples of CUDA tensors go to the ``upsample_int``
 kernel under the same conditions as the JAX package's Pallas route; every
-other resize (f32, downsamples, odd channel counts) takes the einsum.
+other resize (f32, downsamples, odd channel counts) takes the einsum. Both
+routes carry gradients (the kernel's through its ``autograd.Function``).
 """
 
 from __future__ import annotations
@@ -99,3 +100,11 @@ def resize_nchw(x: torch.Tensor, out_hw) -> torch.Tensor:
     no copy is made on the way."""
     y = resize_bilinear(x.permute(0, 2, 3, 1), tuple(out_hw))
     return y.permute(0, 3, 1, 2)
+
+
+def maxpool_hw(x: torch.Tensor, fh: int, fw: int) -> torch.Tensor:
+    """Exact integer-factor max-pool over the trailing (H, W) dims, any
+    leading dims and dtype: the single definition of GT-mask downsampling
+    for the train step, the targets and the loss (as in the JAX package)."""
+    *lead, h, w = x.shape
+    return x.reshape(*lead, h // fh, fh, w // fw, fw).amax(dim=(-3, -1))

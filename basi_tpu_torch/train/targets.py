@@ -1,0 +1,114 @@
+"""GT -> cell-grid target assignment (port of ``basi_tpu/train/targets.py``).
+
+The JAX functions work on one image and are ``vmap``-ed; these take the
+batch dimension N first. Rule (center region, SOLO-flavoured): a cell is
+positive for an instance when the cell's centre lies inside the instance's
+centre box (centre +/- sigma * extent / 2, at least half a cell); a cell
+claimed by several instances goes to the smallest. The sparse path keeps
+the first ``max_pos_cells`` cells of a stable sort that puts positives
+first, so positives beyond the cap drop by index, as in JAX.
+
+Shapes: gt_masks (N, M, H, W) 0/1 (any dtype), gt_valid (N, M).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from basi_tpu_torch.ops.resize import maxpool_hw
+
+_EPS = 1e-6
+
+
+def instance_stats(gt_masks: torch.Tensor,
+                   gt_valid: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Per-instance centre of mass, extents, bbox corners and area in
+    normalized [0, 1] coordinates: dict of (N, M) f32 tensors (cy, cx, eh,
+    ew, y0, x0, y1, x1, area, valid)."""
+    *_, h, w = gt_masks.shape
+    dev = gt_masks.device
+    row_mass = gt_masks.sum(-1, dtype=torch.float32)  # (N, M, H)
+    col_mass = gt_masks.sum(-2, dtype=torch.float32)  # (N, M, W)
+    area = row_mass.sum(-1)
+    safe_area = area.clamp_min(_EPS)
+    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
+    cy = (row_mass * ys).sum(-1) / safe_area
+    cx = (col_mass * xs).sum(-1) / safe_area
+    row_any = row_mass > 0
+    col_any = col_mass > 0
+    big = torch.tensor(2.0, device=dev)
+    y_min = torch.where(row_any, ys, big).amin(-1)
+    y_max = torch.where(row_any, ys, -big).amax(-1)
+    x_min = torch.where(col_any, xs, big).amin(-1)
+    x_max = torch.where(col_any, xs, -big).amax(-1)
+    valid = gt_valid.float() * (area > 0)
+    on = valid > 0
+    zero = torch.zeros((), device=dev)
+    hp_y, hp_x = 0.5 / h, 0.5 / w
+    return {
+        "cy": cy, "cx": cx,
+        "eh": (y_max - y_min).clamp_min(0.0),
+        "ew": (x_max - x_min).clamp_min(0.0),
+        "y0": torch.where(on, (y_min - hp_y).clamp_min(0.0), zero),
+        "x0": torch.where(on, (x_min - hp_x).clamp_min(0.0), zero),
+        "y1": torch.where(on, (y_max + hp_y).clamp_max(1.0), zero),
+        "x1": torch.where(on, (x_max + hp_x).clamp_max(1.0), zero),
+        "area": area, "valid": valid,
+    }
+
+
+def _assignment_core(gt_masks, gt_valid, grid_size: int, mask_hw,
+                     center_sigma: float, stats: dict | None = None):
+    """(small (N, M, h, w) f32 GT at the mask resolution, flat_winner
+    (N, S*S), cell_pos (N, S*S) f32, cell_score_tgt (N, S, S, 1) f32).
+
+    ``stats``: precomputed ``instance_stats`` (normalized coordinates, so
+    resolution-free): the step passes full-resolution stats with /4 masks.
+    """
+    s = grid_size
+    if stats is None:
+        stats = instance_stats(gt_masks, gt_valid)
+    dev = gt_masks.device
+    cc = (torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / s
+    half_h = (center_sigma * stats["eh"] * 0.5).clamp_min(0.5 / s)  # (N, M)
+    half_w = (center_sigma * stats["ew"] * 0.5).clamp_min(0.5 / s)
+    # (N, M, S, S): is cell (i, j) inside instance m's centre region?
+    in_y = ((cc[:, None] - stats["cy"][..., None, None]).abs()
+            <= half_h[..., None, None])
+    in_x = ((cc[None, :] - stats["cx"][..., None, None]).abs()
+            <= half_w[..., None, None])
+    hit = in_y & in_x & (stats["valid"][..., None, None] > 0)
+    inf = torch.tensor(float("inf"), device=dev)
+    area_rank = torch.where(hit, stats["area"][..., None, None], inf)
+    winner = area_rank.argmin(dim=1)  # (N, S, S): first minimum, as jnp
+    any_hit = hit.any(dim=1)
+
+    mh, mw = mask_hw
+    gh, gw = gt_masks.shape[-2:]
+    fh, fw = gh // mh, gw // mw
+    if fh * mh != gh or fw * mw != gw or fh < 1:
+        raise NotImplementedError(
+            f"GT masks {gh}x{gw} are not an integer multiple of the mask "
+            f"resolution {mh}x{mw}: the bilinear fallback is not yet ported")
+    small = maxpool_hw(gt_masks, fh, fw).float()
+    n = gt_masks.shape[0]
+    return (small, winner.reshape(n, -1), any_hit.reshape(n, -1).float(),
+            any_hit.float()[..., None])
+
+
+def assign_targets_sparse(gt_masks, gt_valid, grid_size: int = 16,
+                          mask_hw=(128, 128), center_sigma: float = 0.2,
+                          max_pos_cells: int = 64, stats: dict | None = None):
+    """Targets of the positive-cells-only loss. Returns (sel_idx (N, P)
+    int64, tgt_masks (N, P, h, w) f32, pos_sel (N, P) f32, cell_score_tgt
+    (N, S, S, 1), num_pos (N,))."""
+    small, flat_winner, cell_pos, score_tgt = _assignment_core(
+        gt_masks, gt_valid, grid_size, mask_hw, center_sigma, stats)
+    order = torch.argsort(-cell_pos, dim=-1, stable=True)  # positives first
+    sel_idx = order[:, :max_pos_cells]
+    pos_sel = cell_pos.gather(1, sel_idx)
+    win = flat_winner.gather(1, sel_idx)  # (N, P) instance index
+    rows = torch.arange(small.shape[0], device=small.device)[:, None]
+    tgt_sel = small[rows, win] * pos_sel[..., None, None]
+    return sel_idx, tgt_sel, pos_sel, score_tgt, cell_pos.sum(-1)

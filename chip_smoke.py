@@ -4,10 +4,15 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions, then builds the CUDA kernels from ``basi_tpu_torch/csrc``
-   (``nvcc`` for sm_90a, into ``build/kernels/``).
+   (one ``nvcc`` per source, all at once, for sm_90a, into
+   ``build/kernels/``).
 2. Holds each kernel against its plain PyTorch version on the card at every
-   shape the serving path gives it, with times (CUDA events, after warm-up):
-   ``upsample_int`` within 1 bf16 ulp, ``upsample_sigmoid`` within 1e-5.
+   shape the serving and training paths give it, with times (CUDA events,
+   after warm-up): ``upsample_int`` within 1 bf16 ulp and its backward
+   within 1 bf16 ulp plus 2^-20 of the largest value (cancelling f32 sums),
+   ``upsample_sigmoid`` within 1e-5, ``normalize_and_flip`` bit-exact (bf16
+   and f32 out, mixed flip flags), and ``torch.autograd.grad`` through
+   ``resize_bilinear`` on the kernel route against the plain route.
 3. Drives the serving path at full width: preset ``val_v4-8_ap`` (ResNet-50,
    512^2, bf16, batch 8) with seeded random weights, objectness bias 0 and
    non-trivial BN stats. A ``BatchedPredictor`` answers 16 concurrent
@@ -17,6 +22,17 @@
    launch per ``full_res_masks`` call. Prints ``predict_batch`` imgs/s.
 4. f32 check: the same weights through the port on the card (TF32 off) and
    on the CPU agree within 1e-3 on the model outputs (batch 1).
+5. Drives the training path at full width: preset ``bench_accuracy`` with
+   ``data.synthetic_orig_scale=1.0`` (ResNet-50, 512^2, bf16 compute with
+   f32 params, batch 16, SGD + cosine + EMA), seeded weights.
+   ``Trainer.train`` runs 10 steps; every step must launch
+   ``normalize_and_flip`` once and ``upsample_int`` forward and backward 9
+   times each, the loss and metrics must be finite, and params, EMA and BN
+   running statistics must move. Then 20 steps on one repeated batch with
+   ``train.warmup_steps=0`` must bring the loss down; the steady steps are
+   timed (CUDA events) and give imgs/s.
+6. f32 step, card vs CPU: one train step of the tiny config (TF32 off) from
+   the same weights and batch; loss and every gradient agree within 1e-3.
 
 Any failure raises and exits non-zero; so does a machine without CUDA. The
 line before the last is the kernels' JSON record; the last line is
@@ -55,6 +71,17 @@ def _bf16_ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
     want = want.double()
     ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
     return bool(((got.double() - want).abs() <= ulp).all())
+
+
+def _bf16_sum_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Within 1 bf16 ulp of ``want``, or within 2^-20 of its largest
+    magnitude: an adjoint sums up to 4f^2 f32 terms, and where they cancel
+    the rounding of the f32 sums (which another summation order places
+    elsewhere) is larger than an ulp of the small result."""
+    want = want.double()
+    ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    slack = 2.0 ** -20 * float(want.abs().max())
+    return bool(((got.double() - want).abs() <= ulp + slack).all())
 
 
 def _require(cond: bool, what: str) -> None:
@@ -115,6 +142,83 @@ def check_kernels(dev, gen):
         us.update(ms=ms, plain_ms=plain,
                   max_abs_err=max(err, us["max_abs_err"]))
     return ui, us
+
+
+# (input NHWC, factor) of the nine bf16 resizes of a training forward at
+# batch 16 and 512^2: FPN x3, saliency towers x3, mask features x3.
+TRAIN_RESIZES = [((16, 16, 16, 256), 2), ((16, 32, 32, 256), 2),
+                 ((16, 64, 64, 256), 2), ((16, 64, 64, 64), 2),
+                 ((16, 32, 32, 64), 4), ((16, 16, 16, 64), 8),
+                 ((16, 64, 64, 128), 2), ((16, 32, 32, 128), 4),
+                 ((16, 16, 16, 128), 8)]
+
+
+def check_training_kernels(dev, gen):
+    """Phase 2, training path: the upsample_int backward at the nine
+    training shapes, gradients through resize_bilinear (kernel route vs
+    plain route), normalize_and_flip at (16, 512, 512, 3)."""
+    from basi_tpu_torch.kernels.normalize_aug import (
+        normalize_and_flip,
+        normalize_and_flip_reference,
+    )
+    from basi_tpu_torch.kernels.upsample_int import (
+        upsample_int_backward,
+        upsample_int_backward_reference,
+    )
+    from basi_tpu_torch.ops.resize import _resize_einsum, resize_bilinear
+
+    ub = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    for (n, h, w, c), f in TRAIN_RESIZES:
+        g = torch.randn((n, f * h, f * w, c), generator=gen).to(dev, torch.bfloat16)
+        got = upsample_int_backward(g, f)
+        want = upsample_int_backward_reference(g, f)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        _require(_bf16_sum_ok(got, want),
+                 f"upsample_int_bwd {(n, h, w, c)} x{f}: beyond 1 bf16 ulp "
+                 f"+ 2^-20 of the largest (max {err})")
+        ms = _time_ms(lambda: upsample_int_backward(g, f))
+        plain = _time_ms(lambda: upsample_int_backward_reference(g, f))
+        print(f"upsample_int_bwd {(n, h, w, c)} x{f}: max_abs_err {err:.3e} "
+              f"(<= 1 bf16 ulp + 2^-20 max), kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms")
+        ub["ms"] += ms
+        ub["plain_ms"] += plain
+        ub["max_abs_err"] = max(ub["max_abs_err"], err)
+
+        # autograd through the public resize: kernel route vs plain route
+        x = torch.randn((n, h, w, c), generator=gen).to(dev, torch.bfloat16)
+        x.requires_grad_()
+        y = resize_bilinear(x, (f * h, f * w))
+        (gx,) = torch.autograd.grad(y, x, g)
+        y_ref = _resize_einsum(x, (f * h, f * w), False)
+        (gx_ref,) = torch.autograd.grad(y_ref, x, g)
+        _require(_bf16_ulp_ok(y.detach(), y_ref.detach())
+                 and _bf16_sum_ok(gx, gx_ref),
+                 f"resize_bilinear autograd {(n, h, w, c)} x{f}: kernel route "
+                 "beyond 1 bf16 ulp (+ 2^-20 max for the gradient) of the "
+                 "plain route")
+
+    nf = {"max_abs_err": 0.0}
+    imgs = torch.randint(0, 256, (16, 512, 512, 3), generator=gen,
+                         dtype=torch.uint8).to(dev)
+    flip = (torch.arange(16) % 3 == 0).to(dev, torch.int32)  # mixed flags
+    for dtype in (torch.float32, torch.bfloat16):
+        got = normalize_and_flip(imgs, flip, out_dtype=dtype)
+        want = normalize_and_flip_reference(imgs, flip, out_dtype=dtype)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        _require(got.dtype == dtype and torch.equal(got, want),
+                 f"normalize_and_flip {dtype}: not bit-exact (max {err})")
+        ms = _time_ms(lambda: normalize_and_flip(imgs, flip, out_dtype=dtype))
+        plain = _time_ms(lambda: normalize_and_flip_reference(
+            imgs, flip, out_dtype=dtype))
+        print(f"normalize_and_flip (16, 512, 512, 3) u8 -> {dtype}, mixed "
+              f"flags: max_abs_err {err:.3e} (bit-exact), kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms")
+        # the path's dtype (bf16) gives the recorded times
+        nf.update(ms=ms, plain_ms=plain, max_abs_err=max(err, nf["max_abs_err"]))
+    return ub, nf
 
 
 def smoke_weights(cfg, gen):
@@ -237,6 +341,168 @@ def check_f32(cfg, sd, dev, gen):
         torch.testing.assert_close(outs[0][k], outs[1][k], atol=1e-3, rtol=1e-3)
 
 
+TRAIN_STEPS, REPEAT_STEPS, TIMED_FROM = 10, 20, 5
+
+
+def _kernel_counts() -> dict:
+    from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
+    from basi_tpu_torch.kernels.upsample_int import (
+        upsample_int,
+        upsample_int_backward,
+    )
+
+    return {"normalize_and_flip": normalize_and_flip.launches,
+            "upsample_int": upsample_int.launches,
+            "upsample_int_bwd": upsample_int_backward.launches}
+
+
+def _zero_kernel_counts() -> None:
+    from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
+    from basi_tpu_torch.kernels.upsample_int import (
+        upsample_int,
+        upsample_int_backward,
+    )
+
+    normalize_and_flip.launches = 0
+    upsample_int.launches = upsample_int_backward.launches = 0
+
+
+def run_training(dev) -> dict:
+    """Phase 5: the Trainer at full width; returns the launch counts of its
+    10 steps."""
+    from basi_tpu.config import get_config
+    from basi_tpu_torch.train.loop import Trainer
+
+    over = ["data.synthetic_orig_scale=1.0", "train.log_every=1"]
+    cfg = get_config("bench_accuracy", over)
+    trainer = Trainer(cfg, device=dev)
+    model = trainer.state.model
+    params0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    ema0 = {k: v.clone() for k, v in trainer.state.ema.items()}
+    stats0 = {k: b.clone() for k, b in model.named_buffers()
+              if k.endswith(("running_mean", "running_var"))}
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    trainer.train(max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    print(f"trained {TRAIN_STEPS} steps of bench_accuracy ({cfg.model.backbone}, "
+          f"{cfg.model.image_size}^2, {cfg.model.dtype}, batch "
+          f"{cfg.data.batch_size}) in {wall:.2f} s, host feed and first-call "
+          f"set-up included; launches {launches}")
+    _require(launches == {"normalize_and_flip": TRAIN_STEPS,
+                          "upsample_int": 9 * TRAIN_STEPS,
+                          "upsample_int_bwd": 9 * TRAIN_STEPS},
+             f"expected 1 normalize_and_flip and 9 upsample_int forward and "
+             f"backward launches per step over {TRAIN_STEPS} steps, got "
+             f"{launches}")
+    recs = trainer.records
+    _require(len(recs) == TRAIN_STEPS, f"{len(recs)} [train] records")
+    for r in recs:
+        _require(all(np.isfinite(v) for v in r.values()),
+                 f"non-finite [train] record {r}")
+    print(f"losses {[round(r['loss'], 4) for r in recs]}; lr at step "
+          f"{TRAIN_STEPS} {recs[-1]['lr']:.3e}")
+
+    def moved(before, after):
+        return sum(not torch.equal(before[k], after[k]) for k in before)
+
+    n_p = moved(params0, dict(model.named_parameters()))
+    n_e = moved(ema0, trainer.state.ema)
+    n_s = moved(stats0, dict(model.named_buffers()))
+    print(f"moved: {n_p}/{len(params0)} params, {n_e}/{len(ema0)} EMA "
+          f"tensors, {n_s}/{len(stats0)} BN running statistics")
+    _require(n_p == len(params0) and n_e == len(ema0) and n_s == len(stats0),
+             "a param, EMA tensor or BN statistic did not move")
+    del trainer, model, params0, ema0, stats0
+    torch.cuda.empty_cache()
+
+    # One repeated batch, no warmup: the loss must fall; the steady steps
+    # are timed.
+    cfg = get_config("bench_accuracy", over + ["train.warmup_steps=0"])
+    trainer = Trainer(cfg, device=dev)
+    batch = next(iter(trainer.feed.epoch(0)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    losses = []
+    for i in range(REPEAT_STEPS):
+        if i == TIMED_FROM:
+            start.record()
+        losses.append(trainer.train_step(trainer.state, batch)["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (REPEAT_STEPS - TIMED_FROM)
+    losses = [float(v) for v in losses]
+    print(f"repeated batch, {REPEAT_STEPS} steps, losses "
+          f"{[round(v, 4) for v in losses]}")
+    _require(all(np.isfinite(losses)) and min(losses[-5:]) < losses[0],
+             "the loss did not fall over the repeated-batch steps")
+    print(f"train step ({cfg.model.dtype}, batch {cfg.data.batch_size}, "
+          f"{cfg.model.image_size}^2, steps "
+          f"{TIMED_FROM + 1}-{REPEAT_STEPS}): {ms:.3f} ms/step = "
+          f"{cfg.data.batch_size * 1000.0 / ms:.1f} imgs/s; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_f32_step(dev):
+    """Phase 6: one f32 train step of the tiny config on the card and on the
+    CPU from the same weights and batch: loss and gradients within 1e-3."""
+    from basi_tpu.config import (
+        Config,
+        DataConfig,
+        InferConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from basi_tpu_torch.models.basi import create_model
+    from basi_tpu_torch.train.state import create_train_state, make_schedule
+    from basi_tpu_torch.train.step import make_train_step
+
+    cfg = Config(
+        model=ModelConfig(backbone="resnet_tiny", fpn_channels=32,
+                          mask_channels=32, grid_size=8, image_size=64),
+        data=DataConfig(image_size=64, max_instances=4, hflip_prob=1.0),
+        train=TrainConfig(grad_clip_norm=0.0, checkpoint_dir=""),
+        infer=InferConfig(dtype="float32"))
+    rng = np.random.RandomState(SEED)
+    n, size, m = 4, 64, 4
+    yy, xx = np.mgrid[0:size, 0:size]
+    masks = np.zeros((n, m, size, size), np.uint8)
+    for i in range(n):
+        for j in range(m):
+            cy, cx = rng.randint(8, size - 8, size=2)
+            r = rng.randint(4, size // 4)
+            masks[i, j] = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+    host = {"image": torch.from_numpy((rng.rand(n, size, size, 3) * 255).astype(
+                np.uint8)),
+            "masks": torch.from_numpy(masks),
+            "valid": torch.ones((n, m), dtype=torch.uint8)}
+    out = []
+    for device in (dev, "cpu"):
+        model = create_model(cfg.model, device,
+                             torch.Generator().manual_seed(SEED), train=True)
+        state = create_train_state(model, cfg.train)
+        step = make_train_step(cfg.train, cfg.data, make_schedule(cfg.train, 10),
+                               torch.float32)
+        metrics = step(state, {k: v.to(device) for k, v in host.items()})
+        out.append((float(metrics["loss"]),
+                    {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (loss_d, g_d), (loss_c, g_c) = out
+    err = max(float((g_d[k] - g_c[k]).abs().max()) for k in g_c)
+    gmax = max(float(g.abs().max()) for g in g_c.values())
+    print(f"f32 train step card vs cpu: loss {loss_d:.6f} vs {loss_c:.6f}; "
+          f"max gradient difference {err:.3e} (largest gradient {gmax:.3e})")
+    _require(abs(loss_d - loss_c) <= 1e-3 * max(1.0, abs(loss_c)),
+             "f32 step: loss beyond 1e-3")
+    for k in g_c:
+        torch.testing.assert_close(g_d[k], g_c[k], atol=1e-3, rtol=1e-3,
+                                   msg=lambda m, k=k: f"f32 step grad {k}: {m}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -263,20 +529,35 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     ui, us = check_kernels(dev, gen)
 
+    ub, nf = check_training_kernels(dev, gen)
+
     cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"])
     sd = smoke_weights(cfg, gen)
-    launches = run_slice(cfg, sd, dev, gen)
+    serve_launches = run_slice(cfg, sd, dev, gen)
     check_f32(cfg, sd, dev, gen)
+    del sd
+    train_launches = run_training(dev)
+    check_f32_step(dev)
 
+    # launches: each kernel's count over the path it serves, read right
+    # after that path's run (upsample_int: the training path)
     rows = [("upsample_int", "basi_tpu_torch/csrc/upsample_int.cu",
-             "basi_tpu/ops/pallas/upsample_int.py:65", ui),
+             "basi_tpu/ops/pallas/upsample_int.py:65", ui,
+             train_launches["upsample_int"]),
+            ("upsample_int_bwd", "basi_tpu_torch/csrc/upsample_int_bwd.cu",
+             "basi_tpu/ops/pallas/upsample_int.py:264", ub,
+             train_launches["upsample_int_bwd"]),
             ("upsample_sigmoid", "basi_tpu_torch/csrc/upsample_sigmoid.cu",
-             "basi_tpu/ops/pallas/upsample_sigmoid.py:42", us)]
+             "basi_tpu/ops/pallas/upsample_sigmoid.py:42", us,
+             serve_launches["upsample_sigmoid"]),
+            ("normalize_and_flip", "basi_tpu_torch/csrc/normalize_aug.cu",
+             "basi_tpu/ops/pallas/normalize_aug.py:47", nf,
+             train_launches["normalize_and_flip"])]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": r["max_abs_err"],
+         "launches": n, "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"]}
-        for name, src, rep, r in rows]}))
+        for name, src, rep, r, n in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

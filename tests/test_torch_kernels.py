@@ -162,3 +162,144 @@ def test_cpu_tensors_never_reach_the_kernel_build(rng, monkeypatch):
     S.upsample_sigmoid(x[..., 0], (32, 32))
     S.upsample_sigmoid(x[..., 0].to(torch.bfloat16), (32, 32))
     assert (U.upsample_int.launches, S.upsample_sigmoid.launches) == before
+
+
+# --- normalize_and_flip ------------------------------------------------------
+
+from basi_tpu.ops.pallas import normalize_aug as jax_norm  # noqa: E402
+from basi_tpu_torch.kernels import normalize_aug as N  # noqa: E402
+
+_NORM_DTYPES = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("shape,flags", [
+    ((4, 8, 16, 3), (0, 1, 1, 0)),
+    ((3, 5, 7, 3), (1, 0, 1)),
+    ((2, 16, 32, 3), (1, 1)),
+    ((1, 4, 4, 3), (0,)),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_normalize_and_flip_reference_matches_jax(rng, shape, flags, dtype):
+    """The port's plain version against the JAX kernel (interpret mode) and
+    the JAX reference, mixed flip flags. f32: within 2e-6 (the kernel's
+    ``x*(1/255)*(1/std) + (-mean/std)`` against the reference's
+    ``(x/255 - mean)/std``: a few f32 ulps of values up to ~2.7; the port
+    and the JAX kernel do the same arithmetic). bf16: within 1 ulp (one
+    rounding of those f32 values)."""
+    imgs = (rng.rand(*shape) * 256).astype(np.uint8)
+    flip = np.asarray(flags, np.int32)
+    jdt, tdt = _NORM_DTYPES[dtype]
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    got = N.normalize_and_flip_reference(torch.from_numpy(imgs),
+                                         torch.from_numpy(flip), mean, std, tdt)
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    got = got.float().numpy()
+    for want in (jax_norm.normalize_and_flip(jnp.asarray(imgs), jnp.asarray(flip),
+                                             mean, std, interpret=True,
+                                             out_dtype=jdt),
+                 jax_norm.normalize_and_flip_reference(
+                     jnp.asarray(imgs), jnp.asarray(flip), mean, std,
+                     out_dtype=jdt)):
+        want = np.asarray(want, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+        else:
+            assert_within_bf16_ulp(got, want, f"{shape} {flags}")
+    # On a CPU tensor the public function is the plain version.
+    pub = N.normalize_and_flip(torch.from_numpy(imgs), torch.from_numpy(flip),
+                               mean, std, tdt)
+    np.testing.assert_array_equal(pub.float().numpy(), got)
+
+
+@pytest.mark.parametrize("bad", [
+    lambda: N.normalize_and_flip(torch.zeros(2, 4, 4, 12, dtype=torch.uint8),
+                                 torch.zeros(2, dtype=torch.int32)),
+    lambda: N.normalize_and_flip(torch.zeros(2, 4, 4, 3),
+                                 torch.zeros(2, dtype=torch.int32)),
+    lambda: N.normalize_and_flip(torch.zeros(2, 4, 4, 3, dtype=torch.uint8),
+                                 torch.zeros(3, dtype=torch.int32)),
+    lambda: N.normalize_and_flip(torch.zeros(2, 4, 4, 3, dtype=torch.uint8),
+                                 torch.zeros(2, dtype=torch.int32),
+                                 out_dtype=torch.float16),
+])
+def test_normalize_and_flip_rejects_what_the_kernel_cannot_take(bad):
+    """The s2d-packed (C=12) feed, non-uint8 images, a flag count that is
+    not the batch and an output dtype other than bf16/f32 raise."""
+    with pytest.raises(ValueError):
+        bad()
+
+
+# --- upsample_int backward ---------------------------------------------------
+
+@pytest.mark.parametrize("shape,f", [
+    ((2, 4, 4, 8), 2), ((1, 5, 3, 64), 2), ((2, 3, 4, 8), 4),
+    ((1, 4, 4, 64), 4), ((2, 2, 3, 8), 8), ((1, 3, 2, 64), 8),
+    ((1, 1, 1, 8), 4),
+])
+def test_upsample_int_backward_reference_matches_jax_vjp(rng, shape, f):
+    """``upsample_int_backward_reference`` against ``jax.vjp`` of the JAX
+    kernel (interpret mode), whose custom VJP is the transposed-matrix
+    einsum: within 1 bf16 ulp (the same f32 sums, in another order, then
+    one bf16 rounding)."""
+    import jax
+
+    n, h, w, c = shape
+    x = jnp.asarray(rng.randn(*shape).astype(np.float32), jnp.bfloat16)
+    g_np = rng.randn(n, f * h, f * w, c).astype(np.float32)
+    gj, gt = _pair(g_np, "bfloat16")
+    _, vjp = jax.vjp(lambda v: jax_upsample_int(v, f, True), x)
+    want = np.asarray(vjp(gj)[0], np.float32)
+    got = U.upsample_int_backward_reference(gt, f)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    assert_within_bf16_ulp(got.float().numpy(), want, f"{shape} x{f}")
+    torch.testing.assert_close(U.upsample_int_backward(gt, f), got,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,f", [((2, 4, 4, 16), 2), ((1, 3, 5, 8), 4),
+                                     ((1, 2, 2, 64), 8)])
+def test_upsample_int_autograd_on_cpu_matches_plain_autograd(rng, shape, f):
+    """The ``autograd.Function`` on a CPU tensor (plain forward, plain
+    adjoint) against autograd of the plain forward (einsum): forward equal,
+    gradient within 1 bf16 ulp (autograd runs the transposed einsums in
+    its own order)."""
+    n, h, w, c = shape
+    x0 = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(torch.bfloat16)
+    g = torch.from_numpy(rng.randn(n, f * h, f * w, c).astype(np.float32)).to(
+        torch.bfloat16)
+    x1, x2 = x0.clone().requires_grad_(), x0.clone().requires_grad_()
+    y1 = U.upsample_int(x1, f)
+    y2 = U.upsample_int_reference(x2, f)
+    torch.testing.assert_close(y1, y2, rtol=0, atol=0)
+    (gx1,) = torch.autograd.grad(y1, x1, g)
+    (gx2,) = torch.autograd.grad(y2, x2, g)
+    assert gx1.dtype == torch.bfloat16
+    assert_within_bf16_ulp(gx1.float().numpy(), gx2.float().numpy(), str(shape))
+
+
+def test_upsample_int_backward_rejects_bad_cotangents():
+    with pytest.raises(ValueError):
+        U.upsample_int_backward(torch.zeros(1, 8, 8, 8), 2)  # f32
+    with pytest.raises(ValueError):
+        U.upsample_int_backward(torch.zeros(1, 6, 8, 8, dtype=torch.bfloat16), 4)
+    with pytest.raises(ValueError):
+        U.upsample_int_backward(torch.zeros(1, 8, 8, 12, dtype=torch.bfloat16), 2)
+
+
+def test_cpu_training_tensors_never_reach_the_kernel_build(rng, monkeypatch):
+    """The new kernels' CPU paths (normalize, upsample backward through
+    autograd) build nothing and count no launch."""
+    def refuse():
+        raise AssertionError("CPU tensor reached the kernel build")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    before = (N.normalize_and_flip.launches, U.upsample_int_backward.launches)
+    N.normalize_and_flip(torch.zeros(2, 4, 4, 3, dtype=torch.uint8),
+                         torch.ones(2, dtype=torch.int32))
+    x = torch.from_numpy(rng.randn(1, 4, 4, 8).astype(np.float32)).to(
+        torch.bfloat16).requires_grad_()
+    U.upsample_int(x, 2).float().sum().backward()
+    assert x.grad is not None
+    assert (N.normalize_and_flip.launches,
+            U.upsample_int_backward.launches) == before

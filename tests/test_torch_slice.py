@@ -330,26 +330,39 @@ def test_predict_after_close_raises(rng):
 _NO_JAX = """
 import sys
 import numpy as np
-from basi_tpu.config import Config, DataConfig, InferConfig, ModelConfig
+from basi_tpu.config import (Config, DataConfig, InferConfig, ModelConfig,
+                             TrainConfig)
 import basi_tpu_torch
 cfg = Config(
     model=ModelConfig(backbone="resnet_tiny", fpn_channels=32,
                       mask_channels=32, grid_size=8, num_slots=8,
-                      image_size=64),
-    data=DataConfig(image_size=64),
+                      image_size=64, dtype="bfloat16"),
+    data=DataConfig(image_size=64, batch_size=2, synthetic_n=4,
+                    max_instances=4),
+    train=TrainConfig(checkpoint_dir="", ema_decay=0.9),
     infer=InferConfig(batch_size=2, dtype="float32", pre_nms_top_k=16))
 inf = basi_tpu_torch.Inferencer(cfg)
 masks, scores, _ = inf.predict_batch(np.zeros((2, 64, 64, 3), np.uint8))
 full = inf.full_res_masks(masks)
 assert tuple(full.shape) == (2, 8, 64, 64), full.shape
+import contextlib, io
+trainer = basi_tpu_torch.Trainer(cfg)
+with contextlib.redirect_stdout(io.StringIO()):  # the [train] record
+    rec = trainer.train(max_steps=1)
+assert rec["step"] == 1 and np.isfinite(rec["loss"]), rec
+params, stats = basi_tpu_torch.to_jax_variables(trainer.state.model)
+assert "backbone" in params and "backbone" in stats
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
 assert not bad, bad
 # basi_tpu.convert's package __init__ brings in the (jax-free)
-# torch_import beside torch_export.
+# torch_import beside torch_export; the trainer reads the numpy-only
+# dataset module.
 ours = sorted(m for m in sys.modules if m.split(".")[0] == "basi_tpu")
 assert set(ours) <= {"basi_tpu", "basi_tpu.config", "basi_tpu.convert",
                      "basi_tpu.convert.torch_export",
-                     "basi_tpu.convert.torch_import"}, ours
+                     "basi_tpu.convert.torch_import",
+                     "basi_tpu.convert.full_import",
+                     "basi_tpu.data", "basi_tpu.data.datasets"}, ours
 print("ok")
 """
 
