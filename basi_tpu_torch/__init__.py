@@ -1,11 +1,12 @@
 """basi_tpu_torch: the PyTorch/CUDA port of basi_tpu for NVIDIA Hopper.
 
 The JAX package ``basi_tpu`` stays the reference. This package imports
-``torch`` and never ``jax``; of ``basi_tpu`` it uses only the jax-free
-``basi_tpu.config``, ``basi_tpu.convert.torch_export`` and
-``basi_tpu.convert.full_import``, and the numpy-only
-``basi_tpu.data.datasets``. Exports are lazy, so ``import basi_tpu_torch``
-loads nothing heavy.
+``torch`` and numpy, never ``jax`` or ``flax``, and nothing of ``basi_tpu``:
+it keeps its own copies of the config tree (``config``), the weight
+mappings (``convert``) and the synthetic dataset (``data.datasets``). The
+entry points run on the card unless a caller names another device
+(``device="cpu"``). Exports are lazy, so ``import basi_tpu_torch`` loads
+nothing heavy.
 """
 
 _EXPORTS = {

@@ -5,7 +5,8 @@ uint8 NHWC batch -> normalize -> BASINet -> top-k kernel selection, Matrix
 NMS and slot packing at /4 -> (on request) the ``upsample_sigmoid`` kernel
 to full resolution. Weights come from memory: JAX ``params``/``batch_stats``
 trees (through ``export_basinet``), a torch state dict, or a seeded random
-init. Settings outside this slice raise ``NotImplementedError``.
+init. It runs on the card unless ``device`` names another. Settings
+outside this slice raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,8 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from basi_tpu.config import Config
+from basi_tpu_torch.config import Config
 from basi_tpu_torch.convert import load_jax_variables
+from basi_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from basi_tpu_torch.kernels.upsample_sigmoid import upsample_sigmoid
 from basi_tpu_torch.models.basi import BASIOutputs, create_model
 from basi_tpu_torch.ops.nms import select_instances_from_kernels
@@ -36,7 +38,7 @@ def check_infer_config(cfg: Config) -> None:
 
 
 class Inferencer:
-    def __init__(self, cfg: Config, device="cpu", params=None,
+    def __init__(self, cfg: Config, device=DEFAULT_DEVICE, params=None,
                  batch_stats=None, state_dict=None, checkpoint: str = "",
                  seed: int = 0):
         """``params``/``batch_stats``: JAX variable trees (numpy leaves);
@@ -50,7 +52,7 @@ class Inferencer:
                 "or a state_dict")
         check_infer_config(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         name = cfg.infer.dtype or cfg.model.dtype
         if name not in _DTYPES:
             raise ValueError(f"unknown inference dtype {name!r}")

@@ -39,6 +39,12 @@ SIGNATURES = {
     # x, y, b, h, w, oh, ow, stream
     "basi_upsample_sigmoid_f32": (_P, _P, _I, _I, _I, _I, _I, _P),
     "basi_upsample_sigmoid_bf16": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, ws, out, rows, c, groups per block, row splits, stream
+    "basi_channel_moments_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "basi_channel_moments_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # g, x, ws, out, rows, c, groups per block, row splits, stream
+    "basi_channel_dual_sums_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "basi_channel_dual_sums_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

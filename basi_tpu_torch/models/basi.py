@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 
+from basi_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from basi_tpu_torch.models.fpn import FPN
 from basi_tpu_torch.models.heads import (
     InstanceKernelHead,
@@ -48,7 +49,8 @@ class BASIOutputs(NamedTuple):
 
 class BASINet(nn.Module):
     def __init__(self, backbone: str = "resnet50", fpn_channels: int = 256,
-                 mask_channels: int = 64, grid_size: int = 16):
+                 mask_channels: int = 64, grid_size: int = 16,
+                 bn_impl: str = "xla"):
         super().__init__()
         if backbone.startswith("vgg"):
             raise NotImplementedError(f"backbone {backbone!r} not yet ported")
@@ -57,7 +59,8 @@ class BASINet(nn.Module):
         self.backbone_name = backbone
         self.stage_sizes = STAGE_SIZES[backbone]
         self.backbone = ResNetTrunk(self.stage_sizes,
-                                    BLOCK_KIND.get(backbone, "bottleneck"))
+                                    BLOCK_KIND.get(backbone, "bottleneck"),
+                                    bn_impl)
         self.fpn = FPN(self.backbone.out_channels, fpn_channels)
         self.saliency = SaliencyHead(fpn_channels, 64, 4)
         self.maskfeat = MaskFeatureHead(fpn_channels, 128, mask_channels, 4)
@@ -92,19 +95,20 @@ def check_model_config(mcfg) -> None:
         raise NotImplementedError("model.refine not yet ported")
 
 
-def create_model(mcfg, device="cpu",
+def create_model(mcfg, device=DEFAULT_DEVICE,
                  generator: torch.Generator | None = None,
                  train: bool = False) -> BASINet:
-    """BASINet for a ``basi_tpu.config.ModelConfig``, f32, ``channels_last``,
-    with random weights from ``generator`` (seed 0 when omitted), in eval
-    mode (serving) or, with ``train``, in train mode with f32 master params
-    for ``train.step``; load real weights with ``convert.load_jax_variables``
-    or ``load_state_dict``."""
+    """BASINet for a ``config.ModelConfig`` on ``device`` (the card unless
+    another is named), f32, ``channels_last``, BatchNorms of
+    ``model.bn_impl``, with random weights from ``generator`` (seed 0 when
+    omitted), in eval mode (serving) or, with ``train``, in train mode with
+    f32 master params for ``train.step``; load real weights with
+    ``convert.load_jax_variables`` or ``load_state_dict``."""
     check_model_config(mcfg)
     with torch.device("meta"):  # no throwaway default init
         model = BASINet(mcfg.backbone, mcfg.fpn_channels, mcfg.mask_channels,
-                        mcfg.grid_size)
-    model = model.to_empty(device=device)
+                        mcfg.grid_size, mcfg.bn_impl)
+    model = model.to_empty(device=resolve_device(device))
     init_weights(model, generator or torch.Generator().manual_seed(0))
     return model.to(memory_format=torch.channels_last).train(train)
 

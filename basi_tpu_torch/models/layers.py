@@ -47,6 +47,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     # (mean, 1/sqrt(var + eps)) of the last train-mode call, until
     # update_running_stats folds them into the running statistics
     batch_stats: tuple[torch.Tensor, torch.Tensor] | None = None
+    # True where batch_stats holds (mean, biased var) itself
+    # (models/norm.py's FusedBatchNorm)
+    stats_hold_var = False
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
@@ -64,15 +67,23 @@ class BatchNorm2d(nn.BatchNorm2d):
 @torch.no_grad()
 def update_running_stats(bns: list[BatchNorm2d]) -> None:
     """flax's running update for every BN that ran in train mode since the
-    last call: ``ra = m * ra + (1 - m) * stat`` with the biased variance
-    ``1/invstd^2 - eps``, as a handful of foreach launches for all layers
-    (not a few per layer)."""
-    ran = [bn for bn in bns if bn.batch_stats is not None]
+    last call: ``ra = m * ra + (1 - m) * stat`` with the biased variance,
+    as a handful of foreach launches for all layers (not a few per layer).
+    The variance is the layer's own where it hands one over (fused layers:
+    flax's clamped one-pass variance), else ``1/invstd^2 - eps``."""
+    held = [bn for bn in bns if bn.batch_stats is not None
+            and bn.stats_hold_var]
+    from_inv = [bn for bn in bns if bn.batch_stats is not None
+                and not bn.stats_hold_var]
+    ran = held + from_inv
     if not ran:
         return
     means = [bn.batch_stats[0] for bn in ran]
-    var = torch._foreach_pow([bn.batch_stats[1] for bn in ran], -2)
-    torch._foreach_sub_(var, [bn.eps for bn in ran])
+    var = [bn.batch_stats[1] for bn in held]
+    if from_inv:
+        v = torch._foreach_pow([bn.batch_stats[1] for bn in from_inv], -2)
+        torch._foreach_sub_(v, [bn.eps for bn in from_inv])
+        var += v
     for ra, stat in (([bn.running_mean for bn in ran], means),
                      ([bn.running_var for bn in ran], var)):
         torch._foreach_mul_(ra, BN_MOMENTUM)

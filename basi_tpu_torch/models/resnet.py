@@ -3,11 +3,12 @@
 Module and state-dict names are torchvision's, so the JAX package's
 ``export_basinet`` output loads with ``load_state_dict(strict=True)``. BN
 (eps 1e-5) runs on running statistics, or with ``train=True`` on batch
-statistics with flax's running update (``models/layers.py``). Convs compute
-in the input's dtype. Only the conv7 stem is ported: the JAX
-package's ``s2d`` and ``conv7p8`` stems compute the same function from the
-same (7, 7, 3, 64) parameter, so every ``stem_mode`` runs conv7 here on raw
-3-channel input.
+statistics with flax's running update (``models/layers.py``); every BN site
+is built by ``models/norm.py::make_batch_norm`` from ``model.bn_impl``
+(``xla``, ``fused`` or ``stats``). Convs compute in the input's dtype. Only
+the conv7 stem is ported: the JAX package's ``s2d`` and ``conv7p8`` stems
+compute the same function from the same (7, 7, 3, 64) parameter, so every
+``stem_mode`` runs conv7 here on raw 3-channel input.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from basi_tpu_torch.models.layers import (
     Conv2d,
     update_running_stats,
 )
+from basi_tpu_torch.models.norm import make_batch_norm
 
 # Block counts, torchvision numbering (same table as the JAX package).
 STAGE_SIZES = {
@@ -44,11 +46,12 @@ class ConvBN(nn.Sequential):
     """Conv (no bias) + BatchNorm as ``.0`` / ``.1``: the projection
     shortcut, named ``downsample`` as in torchvision."""
 
-    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1):
+    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1,
+                 bn_impl: str = "xla"):
         super().__init__(
             Conv2d(cin, cout, kernel, stride=stride,
                    padding=(kernel - 1) // 2, bias=False),
-            BatchNorm2d(cout, eps=BN_EPS),
+            make_batch_norm(bn_impl, cout, eps=BN_EPS),
         )
 
     def forward(self, x, train: bool = False):
@@ -60,15 +63,16 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 bn_impl: str = "xla"):
         super().__init__()
         self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = make_batch_norm(bn_impl, planes, eps=BN_EPS)
         self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
                             bias=False)
-        self.bn2 = BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = make_batch_norm(bn_impl, planes, eps=BN_EPS)
         self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = BatchNorm2d(planes * 4, eps=BN_EPS)
+        self.bn3 = make_batch_norm(bn_impl, planes * 4, eps=BN_EPS)
         self.downsample = downsample
 
     def forward(self, x, train: bool = False):
@@ -84,13 +88,14 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 bn_impl: str = "xla"):
         super().__init__()
         self.conv1 = Conv2d(inplanes, planes, 3, stride=stride, padding=1,
                             bias=False)
-        self.bn1 = BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = make_batch_norm(bn_impl, planes, eps=BN_EPS)
         self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = make_batch_norm(bn_impl, planes, eps=BN_EPS)
         self.downsample = downsample
 
     def forward(self, x, train: bool = False):
@@ -103,11 +108,13 @@ class BasicBlock(nn.Module):
 class ResNetTrunk(nn.Module):
     """torchvision ResNet minus avgpool/fc; NCHW in, (C2, C3, C4, C5) out."""
 
-    def __init__(self, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck"):
+    def __init__(self, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck",
+                 bn_impl: str = "xla"):
         super().__init__()
         self.block = BasicBlock if block == "basic" else Bottleneck
+        self.bn_impl = bn_impl
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = make_batch_norm(bn_impl, 64, eps=BN_EPS)
         self.inplanes = 64
         self.layer1 = self._make_layer(64, stage_sizes[0], stride=1)
         self.layer2 = self._make_layer(128, stage_sizes[1], stride=2)
@@ -118,11 +125,14 @@ class ResNetTrunk(nn.Module):
         exp = self.block.expansion
         downsample = None
         if stride != 1 or self.inplanes != planes * exp:
-            downsample = ConvBN(self.inplanes, planes * exp, 1, stride)
-        layers = [self.block(self.inplanes, planes, stride, downsample)]
+            downsample = ConvBN(self.inplanes, planes * exp, 1, stride,
+                                self.bn_impl)
+        layers = [self.block(self.inplanes, planes, stride, downsample,
+                             self.bn_impl)]
         self.inplanes = planes * exp
         for _ in range(1, blocks):
-            layers.append(self.block(self.inplanes, planes))
+            layers.append(self.block(self.inplanes, planes,
+                                     bn_impl=self.bn_impl))
         return nn.Sequential(*layers)
 
     @property

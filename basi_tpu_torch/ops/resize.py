@@ -69,7 +69,7 @@ def kernel_upsample_factor(x: torch.Tensor, oh: int, ow: int,
                            align_corners: bool) -> int:
     """The factor of a resize the ``upsample_int`` kernel takes, else 0:
     bf16 NHWC, half-pixel centres, the same factor 2/4/8 on both axes and
-    C % 8 == 0 (the rule of ``basi_tpu.ops.resize._use_pallas_upsample``)."""
+    C % 8 == 0 (the JAX package's ``_use_pallas_upsample`` rule)."""
     if align_corners or x.dtype != torch.bfloat16 or x.dim() != 4:
         return 0
     _, h, w, c = x.shape

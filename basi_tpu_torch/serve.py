@@ -15,7 +15,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from basi_tpu.config import Config
+from basi_tpu_torch.config import Config
+from basi_tpu_torch.device import DEFAULT_DEVICE
 from basi_tpu_torch.infer import Inferencer, to_numpy
 
 
@@ -30,7 +31,7 @@ class BatchedPredictor:
 
     def __init__(self, cfg: Config, checkpoint: str = "",
                  max_wait_ms: float = 5.0, max_pending: int = 256,
-                 aot_path: str = "", *, device="cpu", params=None,
+                 aot_path: str = "", *, device=DEFAULT_DEVICE, params=None,
                  batch_stats=None, state_dict=None, seed: int = 0):
         """Weights as for ``Inferencer`` (``params``/``batch_stats``,
         ``state_dict`` or a seeded random init) on ``device``."""

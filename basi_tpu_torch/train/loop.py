@@ -1,6 +1,6 @@
 """Training runner, single device (port of ``basi_tpu/train/loop.py``).
 
-``Trainer(cfg, device=...)`` builds the dataset (``basi_tpu.data.datasets``,
+``Trainer(cfg, device=...)`` builds the dataset (``data/datasets.py``,
 numpy only), the model in train mode from seeded weights, the schedule, the
 state and the step; ``train(max_steps=None)`` runs the epochs and logs a
 ``[train]`` record (step, epoch, lr, step_ms, imgs_per_s and the step's
@@ -27,9 +27,10 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from basi_tpu.config import Config
-from basi_tpu.data.datasets import iter_epoch, make_dataset
+from basi_tpu_torch.config import Config
+from basi_tpu_torch.data.datasets import iter_epoch, make_dataset
 from basi_tpu_torch.data.transforms import pack_masks_host
+from basi_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from basi_tpu_torch.models.basi import create_model
 from basi_tpu_torch.train.state import (
     check_train_config,
@@ -123,11 +124,12 @@ class HostFeed:
 
 
 class Trainer:
-    def __init__(self, cfg: Config, device="cpu"):
-        """Weights, batch order and flips all follow ``train.seed``."""
+    def __init__(self, cfg: Config, device=DEFAULT_DEVICE):
+        """Weights, batch order and flips all follow ``train.seed``; runs
+        on the card unless ``device`` names another."""
         check_train_config(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg.model)
         self.dataset = make_dataset(cfg.data, split="train")
         self.feed = HostFeed(self.dataset, cfg.data.batch_size,

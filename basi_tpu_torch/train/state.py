@@ -68,8 +68,7 @@ def check_train_config(cfg) -> None:
         (t.grad_accum > 1, "train.grad_accum > 1"),
         (t.steps_per_dispatch > 1, "train.steps_per_dispatch > 1"),
         (t.freeze_bn, "train.freeze_bn"),
-        (t.remat or cfg.model.bn_impl != "xla",
-         "train.remat / model.bn_impl other than 'xla'"),
+        (t.remat, "train.remat"),
         (t.optimizer == "adamw", "train.optimizer='adamw'"),
         (cfg.parallel.num_devices > 1 or cfg.parallel.spatial_shards > 1,
          "multi-device training"),

@@ -13,33 +13,72 @@
    ``upsample_sigmoid`` within 1e-5, ``normalize_and_flip`` bit-exact (bf16
    and f32 out, mixed flip flags), and ``torch.autograd.grad`` through
    ``resize_bilinear`` on the kernel route against the plain route.
+   ``channel_moments`` and ``channel_dual_sums`` at the 12 (H*W, C) of
+   ResNet-50's 53 BatchNorms at 512^2, batch 16, bf16, and at two shapes in
+   f32: per channel within ``1e-5 * sum |term|`` of the plain version (f32
+   sums of up to a million terms in another order), and two launches bit
+   for bit equal. Their inputs rotate through copies larger than the L2
+   cache, so each call reads from device memory as the step's would.
 3. Drives the serving path at full width: preset ``val_v4-8_ap`` (ResNet-50,
    512^2, bf16, batch 8) with seeded random weights, objectness bias 0 and
    non-trivial BN stats. A ``BatchedPredictor`` answers 16 concurrent
    requests (two batches), then ``full_res_masks`` runs on each answer. The
    outputs must be finite with filled slots, and the launch counters must
    show 9 ``upsample_int`` launches per forward and one ``upsample_sigmoid``
-   launch per ``full_res_masks`` call. Prints ``predict_batch`` imgs/s.
+   launch per ``full_res_masks`` call. Prints ``predict_batch`` imgs/s. The
+   same weights with ``model.bn_impl=fused`` give bit-equal outputs and
+   launch no BatchNorm kernel (eval mode).
 4. f32 check: the same weights through the port on the card (TF32 off) and
    on the CPU agree within 1e-3 on the model outputs (batch 1).
 5. Drives the training path at full width: preset ``bench_accuracy`` with
    ``data.synthetic_orig_scale=1.0`` (ResNet-50, 512^2, bf16 compute with
-   f32 params, batch 16, SGD + cosine + EMA), seeded weights.
-   ``Trainer.train`` runs 10 steps; every step must launch
+   f32 params, batch 16, SGD + cosine + EMA), seeded weights, once for each
+   ``model.bn_impl``: ``Trainer.train`` runs 10 steps of ``xla``, 10 of
+   ``fused`` and 3 of ``stats``. Every step must launch
    ``normalize_and_flip`` once and ``upsample_int`` forward and backward 9
-   times each, the loss and metrics must be finite, and params, EMA and BN
-   running statistics must move. Then 20 steps on one repeated batch with
-   ``train.warmup_steps=0`` must bring the loss down; the steady steps are
-   timed (CUDA events) and give imgs/s.
+   times each, and per step 53 ``channel_moments`` and 53
+   ``channel_dual_sums`` (fused), 53 and 0 (stats), none (xla); the loss
+   and metrics must be finite, and params, EMA and BN running statistics
+   must move. ``Trainer`` and ``BatchedPredictor`` (phase 3) are called
+   without a device: their default is the card. Then one repeated batch
+   per setting (``train.warmup_steps=0``, ``train.lr=0.0025``) must bring
+   the loss down (every loss of the second half below the first); after 5
+   steps the three are timed in turns (xla, fused, stats, stats, fused,
+   xla; 10 steps a window, CUDA events), then ``torch.profiler`` traces 3
+   more steps of each: device ms and launches per step by kernel class, and
+   the device's busy share (the profile's device ms over the event step
+   time). Last, the model at batch 4 takes one forward and backward of the
+   same batch in f32 on the card (TF32 off) in each setting and in float64
+   on the CPU: each f32 loss within 2e-5 relative of the float64 one, each
+   f32 gradient within 5e-2 of it in norm (f32 gradients of the early
+   trunk layers are good to 1-2% at full width).
 6. f32 step, card vs CPU: one train step of the tiny config (TF32 off) from
-   the same weights and batch; loss and every gradient agree within 1e-3.
+   the same weights and batch, for ``bn_impl`` xla and fused; loss and
+   every gradient agree within 1e-3.
 
-Any failure raises and exits non-zero; so does a machine without CUDA. The
-line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero; so does a machine without CUDA or
+a directory without the package. The line before the last is the
+kernels' JSON record, ``{"kernels": [...]}``, one entry for each of the six
+kernels with ``name``, ``route`` ("cuda"), ``source`` (its ``.cu`` file),
+``replaces`` (the TPU kernel's file:line), ``launches`` (on its path:
+``upsample_int``, its backward and ``normalize_and_flip`` over the 10
+``xla`` training steps, ``upsample_sigmoid`` over the serving run, the BN
+kernels over the 10 ``fused`` steps), ``max_abs_err`` (against its plain
+version) and, per forward or step (nine ``upsample_int`` calls of a
+serving forward, nine backward calls and one ``normalize_and_flip`` of a
+training step, one ``upsample_sigmoid`` call, 53 calls of each BN
+kernel), ``ms`` and ``plain_ms`` (CUDA events), ``bound_ms`` and
+``bound_by`` (compulsory bytes over 3.35 TB/s or f32 operations over 67
+TFLOP/s, the larger, from this run's inputs) and ``library_ms`` (the one
+PyTorch call that computes the same function: ``F.interpolate``, its
+backward ``upsample_bilinear2d_backward``, ``torch.batch_norm_stats``,
+``torch.batch_norm_backward_reduce``; null where there is none). The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
+import itertools
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -47,10 +86,14 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 REQUESTS = 16
 WARMUP, ITERS = 3, 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+L2_BYTES = 50e6
 
 
 def _time_ms(fn, iters=ITERS) -> float:
@@ -64,6 +107,20 @@ def _time_ms(fn, iters=ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_cold_ms(fn, args_list, iters=ITERS) -> float:
+    """``_time_ms`` of ``fn(*args)`` cycling through ``args_list``, copies
+    whose total exceeds the L2 cache: each call reads device memory."""
+    args = itertools.cycle(args_list)
+    return _time_ms(lambda: fn(*next(args)), iters)
+
+
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms, what bounds it): compulsory bytes over the memory rate or
+    f32 operations over the f32 rate, the larger."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
 def _bf16_ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -89,6 +146,11 @@ def _require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    """The NCHW view of an NHWC-contiguous tensor (channels_last)."""
+    return x.permute(0, 3, 1, 2)
+
+
 def check_kernels(dev, gen):
     """Phase 2: kernel vs plain version at the serving path's shapes."""
     from basi_tpu_torch.kernels.upsample_int import (
@@ -107,7 +169,8 @@ def check_kernels(dev, gen):
               ((8, 32, 32, 64), 4), ((8, 16, 16, 64), 8),
               ((8, 64, 64, 128), 2), ((8, 32, 32, 128), 4),
               ((8, 16, 16, 128), 8)]
-    ui = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    ui = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
+          "bytes": 0.0, "flops": 0.0}
     for shape, f in shapes:
         x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
         got, want = upsample_int(x, f), upsample_int_reference(x, f)
@@ -117,15 +180,21 @@ def check_kernels(dev, gen):
                  f"upsample_int {shape} x{f}: beyond 1 bf16 ulp (max {err})")
         ms = _time_ms(lambda: upsample_int(x, f))
         plain = _time_ms(lambda: upsample_int_reference(x, f))
+        lib = _time_ms(lambda: F.interpolate(
+            _nchw(x), scale_factor=f, mode="bilinear", align_corners=False))
         print(f"upsample_int {shape} x{f}: max_abs_err {err:.3e} "
-              f"(<= 1 bf16 ulp), kernel {ms:.4f} ms, plain {plain:.4f} ms")
+              f"(<= 1 bf16 ulp), kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"F.interpolate {lib:.4f} ms")
         ui["ms"] += ms
         ui["plain_ms"] += plain
+        ui["library_ms"] += lib
         ui["max_abs_err"] = max(ui["max_abs_err"], err)
+        ui["bytes"] += 2 * (x.numel() + got.numel())
+        ui["flops"] += 7 * got.numel()  # 4 taps: 4 mul + 3 add per output
 
     # The serving path hands it bf16 slot masks; f32 input is checked too.
     logits = torch.randn((8, 20, 128, 128), generator=gen) * 4
-    us = {"max_abs_err": 0.0}
+    us = {"max_abs_err": 0.0, "library_ms": None}
     for dtype in (torch.float32, torch.bfloat16):
         x = logits.to(dev, dtype)
         got = upsample_sigmoid(x, (512, 512))
@@ -139,8 +208,11 @@ def check_kernels(dev, gen):
         print(f"upsample_sigmoid (8, 20, 128, 128) {dtype} -> 512^2 f32: "
               f"max_abs_err {err:.3e} (<= 1e-5), kernel {ms:.4f} ms, "
               f"plain {plain:.4f} ms")
+        # the path's dtype (bf16, last) gives the recorded times
         us.update(ms=ms, plain_ms=plain,
-                  max_abs_err=max(err, us["max_abs_err"]))
+                  max_abs_err=max(err, us["max_abs_err"]),
+                  bytes=x.numel() * x.element_size() + 4 * got.numel(),
+                  flops=12 * got.numel())  # 7 for the taps, ~5 the sigmoid
     return ui, us
 
 
@@ -167,7 +239,8 @@ def check_training_kernels(dev, gen):
     )
     from basi_tpu_torch.ops.resize import _resize_einsum, resize_bilinear
 
-    ub = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    ub = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
+          "bytes": 0.0, "flops": 0.0}
     for (n, h, w, c), f in TRAIN_RESIZES:
         g = torch.randn((n, f * h, f * w, c), generator=gen).to(dev, torch.bfloat16)
         got = upsample_int_backward(g, f)
@@ -179,12 +252,17 @@ def check_training_kernels(dev, gen):
                  f"+ 2^-20 of the largest (max {err})")
         ms = _time_ms(lambda: upsample_int_backward(g, f))
         plain = _time_ms(lambda: upsample_int_backward_reference(g, f))
+        lib = _time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+            _nchw(g), [f * h, f * w], [n, c, h, w], False))
         print(f"upsample_int_bwd {(n, h, w, c)} x{f}: max_abs_err {err:.3e} "
               f"(<= 1 bf16 ulp + 2^-20 max), kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms")
+              f"{plain:.4f} ms, upsample_bilinear2d_backward {lib:.4f} ms")
         ub["ms"] += ms
         ub["plain_ms"] += plain
+        ub["library_ms"] += lib
         ub["max_abs_err"] = max(ub["max_abs_err"], err)
+        ub["bytes"] += 2 * (g.numel() + got.numel())
+        ub["flops"] += 8 * g.numel()  # each cotangent feeds 4 taps
 
         # autograd through the public resize: kernel route vs plain route
         x = torch.randn((n, h, w, c), generator=gen).to(dev, torch.bfloat16)
@@ -199,7 +277,7 @@ def check_training_kernels(dev, gen):
                  "beyond 1 bf16 ulp (+ 2^-20 max for the gradient) of the "
                  "plain route")
 
-    nf = {"max_abs_err": 0.0}
+    nf = {"max_abs_err": 0.0, "library_ms": None}
     imgs = torch.randint(0, 256, (16, 512, 512, 3), generator=gen,
                          dtype=torch.uint8).to(dev)
     flip = (torch.arange(16) % 3 == 0).to(dev, torch.int32)  # mixed flags
@@ -216,9 +294,121 @@ def check_training_kernels(dev, gen):
         print(f"normalize_and_flip (16, 512, 512, 3) u8 -> {dtype}, mixed "
               f"flags: max_abs_err {err:.3e} (bit-exact), kernel {ms:.4f} ms, "
               f"plain {plain:.4f} ms")
-        # the path's dtype (bf16) gives the recorded times
-        nf.update(ms=ms, plain_ms=plain, max_abs_err=max(err, nf["max_abs_err"]))
+        # the path's dtype (bf16, last) gives the recorded times
+        nf.update(ms=ms, plain_ms=plain, max_abs_err=max(err, nf["max_abs_err"]),
+                  bytes=imgs.numel() + got.numel() * got.element_size(),
+                  flops=3 * got.numel())
     return ub, nf
+
+
+# (H*W, C) of ResNet-50's 53 BatchNorms at 512^2 and how many layers have
+# each: the stem; layer1 (3 blocks); layer2 (4); layer3 (6); layer4 (3).
+BN_SHAPES = [((65536, 64), 1), ((16384, 64), 6), ((16384, 256), 4),
+             ((16384, 128), 1), ((4096, 128), 7), ((4096, 512), 5),
+             ((4096, 256), 1), ((1024, 256), 11), ((1024, 1024), 7),
+             ((1024, 512), 1), ((256, 512), 5), ((256, 2048), 4)]
+BN_BATCH = 16
+BN_F32_SHAPES = [(16384, 64), (256, 2048)]
+
+
+def _activations(gen, dev, hw: int, c: int, dtype, loc: float = 0.0):
+    """Copies of one (16, H, W, C) NHWC input, more than the L2 cache
+    holds."""
+    side = math.isqrt(hw)
+    base = (torch.randn((BN_BATCH, side, side, c), generator=gen) * 2
+            + loc).to(dev, dtype)
+    copies = max(2, math.ceil(2 * L2_BYTES / (base.numel()
+                                              * base.element_size())))
+    return [base] + [base.clone() for _ in range(copies - 1)]
+
+
+def _sums_ok(got, want, absum) -> bool:
+    """Per channel within 1e-5 of the sum of the terms' magnitudes."""
+    return all(bool(((g.double() - w.double()).abs()
+                     <= 1e-5 * a.double()).all())
+               for g, w, a in zip(got, want, absum))
+
+
+def _bn_stats_library(g, x, zero, one):
+    """(sum g, sum g*x) in one PyTorch call: the BatchNorm backward's
+    reduction with mean 0 and invstd 1."""
+    return torch.batch_norm_backward_reduce(
+        _nchw(g), _nchw(x), zero, one, None, True, False, False)[:2]
+
+
+def check_bn_kernels(dev, gen):
+    """Phase 2, fused BatchNorm: channel_moments and channel_dual_sums at
+    the 12 BN shapes of a ResNet-50 step (bf16) and two in f32; returns the
+    per-step records (53 calls each)."""
+    from basi_tpu_torch.kernels import bn_stats as B
+
+    recs = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0}
+            for k in ("channel_moments", "channel_dual_sums")}
+    cases = [((hw, c), n, torch.bfloat16) for (hw, c), n in BN_SHAPES]
+    cases += [(s, 0, torch.float32) for s in BN_F32_SHAPES]
+    for (hw, c), layers, dtype in cases:
+        xs = _activations(gen, dev, hw, c, dtype, loc=0.5)
+        gs = _activations(gen, dev, hw, c, dtype)
+        zero = torch.zeros(c, device=dev)
+        one = torch.ones(c, device=dev)
+        xf, gf = xs[0].float(), gs[0].float()
+        nbytes = xs[0].numel() * xs[0].element_size()
+        runs = {
+            "channel_moments": (
+                B.channel_moments, B.channel_moments_reference,
+                [(x,) for x in xs],
+                lambda x: torch.batch_norm_stats(_nchw(x), 1e-5),
+                [(x,) for x in xs],
+                (xf.abs().sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))),
+                nbytes + 8 * c),
+            "channel_dual_sums": (
+                B.channel_dual_sums, B.channel_dual_sums_reference,
+                list(zip(gs, xs)), _bn_stats_library,
+                [(g, x, zero, one) for g, x in zip(gs, xs)],
+                (gf.abs().sum((0, 1, 2)), (gf * xf).abs().sum((0, 1, 2))),
+                2 * nbytes + 8 * c)}
+        del xf, gf
+        for name, (fn, plain_fn, args, lib_fn, lib_args, absum,
+                   io_bytes) in runs.items():
+            got, again = fn(*args[0]), fn(*args[0])
+            want = plain_fn(*args[0])
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            what = f"{name} ({BN_BATCH}x{hw}, {c}) {dtype}"
+            _require(_sums_ok(got, want, absum),
+                     f"{what}: beyond 1e-5 * sum|term| (max diff {err})")
+            _require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                     f"{what}: two launches differ")
+            if name == "channel_dual_sums":
+                _require(_sums_ok(lib_fn(*lib_args[0]), want, absum),
+                         f"{what}: batch_norm_backward_reduce does not give "
+                         "(sum g, sum g*x)")
+            ms = _time_cold_ms(fn, args)
+            plain = _time_cold_ms(plain_fn, args)
+            lib = _time_cold_ms(lib_fn, lib_args)
+            flops = 3 * xs[0].numel()  # add; multiply, add
+            bound, _ = _bound(io_bytes, flops)
+            print(f"{what}: max_abs_err {err:.3e} (<= 1e-5 sum|term|, "
+                  f"repeats bit for bit), kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, library {lib:.4f} ms, bound "
+                  f"{bound:.4f} ms")
+            r = recs[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if layers:  # one step: each layer of this shape calls once
+                r["ms"] += layers * ms
+                r["plain_ms"] += layers * plain
+                r["library_ms"] += layers * lib
+                r["bytes"] += layers * io_bytes
+                r["flops"] += layers * flops
+        del xs, gs, runs
+        torch.cuda.empty_cache()
+    for name, r in recs.items():
+        print(f"{name}, one step's 53 calls (bf16): kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"ms, bound {_bound(r['bytes'], r['flops'])[0]:.4f} ms "
+              f"({r['bytes'] / 1e9:.3f} GB)")
+    return recs["channel_moments"], recs["channel_dual_sums"]
 
 
 def smoke_weights(cfg, gen):
@@ -238,17 +428,47 @@ def smoke_weights(cfg, gen):
     return model.state_dict()
 
 
+def _counters() -> dict:
+    """Each kernel wrapper of the port, by name (each carries ``launches``)."""
+    from basi_tpu_torch.kernels.bn_stats import (
+        channel_dual_sums,
+        channel_moments,
+    )
+    from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
+    from basi_tpu_torch.kernels.upsample_int import (
+        upsample_int,
+        upsample_int_backward,
+    )
+    from basi_tpu_torch.kernels.upsample_sigmoid import upsample_sigmoid
+
+    return {"upsample_int": upsample_int,
+            "upsample_int_bwd": upsample_int_backward,
+            "upsample_sigmoid": upsample_sigmoid,
+            "normalize_and_flip": normalize_and_flip,
+            "channel_moments": channel_moments,
+            "channel_dual_sums": channel_dual_sums}
+
+
+def _zero_kernel_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _kernel_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
 def run_slice(cfg, sd, dev, gen):
     """Phase 3: the BatchedPredictor at full width; returns launch counts."""
-    from basi_tpu_torch.kernels.upsample_int import upsample_int
-    from basi_tpu_torch.kernels.upsample_sigmoid import upsample_sigmoid
     from basi_tpu_torch.serve import BatchedPredictor
 
     size, k = cfg.model.image_size, cfg.model.num_slots
     images = torch.randint(0, 256, (REQUESTS, size, size, 3), generator=gen,
                            dtype=torch.uint8).numpy()
-    p = BatchedPredictor(cfg, max_wait_ms=5000, device=dev, state_dict=sd)
+    # the default device: the entry point's own choice of the card
+    p = BatchedPredictor(cfg, max_wait_ms=5000, state_dict=sd)
     try:
+        _require(p.inf.device == dev, f"BatchedPredictor ran on {p.inf.device}")
         forwards = []
         run = p.inf.predict_batch
 
@@ -264,7 +484,7 @@ def run_slice(cfg, sd, dev, gen):
 
         threads = [threading.Thread(target=ask, args=(i,))
                    for i in range(REQUESTS)]
-        upsample_int.launches = upsample_sigmoid.launches = 0
+        _zero_kernel_counts()
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -274,8 +494,7 @@ def run_slice(cfg, sd, dev, gen):
             torch.from_numpy(pr.masks).to(dev, p.inf.dtype)) for pr in preds]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"upsample_int": upsample_int.launches,
-                    "upsample_sigmoid": upsample_sigmoid.launches}
+        launches = _kernel_counts()
         del p.inf.predict_batch
 
         _require(all(pr is not None for pr in preds), "a request got no answer")
@@ -284,12 +503,13 @@ def run_slice(cfg, sd, dev, gen):
               f"launches {launches}")
         _require(forwards == [cfg.infer.batch_size] * 2,
                  f"expected two full batches, got {forwards}")
-        _require(launches["upsample_int"] == 9 * len(forwards),
-                 f"upsample_int launched {launches['upsample_int']} times, "
-                 f"expected 9 per forward x {len(forwards)}")
-        _require(launches["upsample_sigmoid"] == len(fulls),
-                 f"upsample_sigmoid launched {launches['upsample_sigmoid']} "
-                 f"times for {len(fulls)} full_res_masks calls")
+        _require(launches == dict(_zero_counts(),
+                                  upsample_int=9 * len(forwards),
+                                  upsample_sigmoid=len(fulls)),
+                 f"expected 9 upsample_int launches per forward x "
+                 f"{len(forwards)} and one upsample_sigmoid per "
+                 f"full_res_masks call ({len(fulls)}), nothing else; got "
+                 f"{launches}")
         filled = 0
         for pr, full in zip(preds, fulls):
             _require(pr.masks.shape == (k, size // 4, size // 4)
@@ -312,9 +532,39 @@ def run_slice(cfg, sd, dev, gen):
         print(f"predict_batch (fwd + selection, bf16, batch "
               f"{cfg.infer.batch_size}, {size}^2): {ms:.3f} ms/batch = "
               f"{cfg.infer.batch_size * 1000.0 / ms:.1f} imgs/s")
+        check_serving_bn_impl(cfg, sd, dev, p.inf, batch)
     finally:
         p.close()
     return launches
+
+
+def _zero_counts() -> dict:
+    return {name: 0 for name in _counters()}
+
+
+def check_serving_bn_impl(cfg, sd, dev, xla_inf, batch) -> None:
+    """Phase 3: serving with ``model.bn_impl=fused`` is the same program in
+    eval mode: bit-equal outputs, no BatchNorm kernel launched."""
+    import dataclasses
+
+    from basi_tpu_torch.infer import Inferencer
+
+    fcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, bn_impl="fused"))
+    inf = Inferencer(fcfg, device=dev, state_dict=sd)
+    _zero_kernel_counts()
+    with torch.inference_mode():
+        got, want = inf.apply_model(batch), xla_inf.apply_model(batch)
+    torch.cuda.synchronize()
+    n = _kernel_counts()
+    _require(n["channel_moments"] == n["channel_dual_sums"] == 0,
+             f"eval mode launched a BatchNorm kernel: {n}")
+    _require(all(torch.equal(getattr(got, k), getattr(want, k)) for k in
+                 ("saliency_logits", "cell_scores", "cell_kernels",
+                  "mask_feats")),
+             "serving with bn_impl=fused differs from xla")
+    print("serving with model.bn_impl=fused: outputs bit-equal to xla, no "
+          "BatchNorm kernel launched")
 
 
 def check_f32(cfg, sd, dev, gen):
@@ -341,41 +591,35 @@ def check_f32(cfg, sd, dev, gen):
         torch.testing.assert_close(outs[0][k], outs[1][k], atol=1e-3, rtol=1e-3)
 
 
-TRAIN_STEPS, REPEAT_STEPS, TIMED_FROM = 10, 20, 5
+TRAIN_OVERRIDES = ["data.synthetic_orig_scale=1.0", "train.log_every=1"]
+# steps of Trainer.train per model.bn_impl, and the launches of each step
+PATH_STEPS = {"xla": 10, "fused": 10, "stats": 3}
+BN_LAYERS = 53
+PER_STEP = {
+    impl: {"upsample_int": 9, "upsample_int_bwd": 9, "upsample_sigmoid": 0,
+           "normalize_and_flip": 1,
+           "channel_moments": BN_LAYERS if impl != "xla" else 0,
+           "channel_dual_sums": BN_LAYERS if impl == "fused" else 0}
+    for impl in PATH_STEPS}
+TIMED_FROM, WINDOW = 5, 10
+TIMED_ORDER = ("xla", "fused", "stats", "stats", "fused", "xla")
+# The repeated batch's step size, a quarter of the preset's peak: at the
+# peak with no warmup one repeated batch spikes in every bn_impl, in f32 as
+# in bf16, at times back above its first loss.
+REPEATED_LR = 0.0025
 
 
-def _kernel_counts() -> dict:
-    from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
-    from basi_tpu_torch.kernels.upsample_int import (
-        upsample_int,
-        upsample_int_backward,
-    )
-
-    return {"normalize_and_flip": normalize_and_flip.launches,
-            "upsample_int": upsample_int.launches,
-            "upsample_int_bwd": upsample_int_backward.launches}
-
-
-def _zero_kernel_counts() -> None:
-    from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
-    from basi_tpu_torch.kernels.upsample_int import (
-        upsample_int,
-        upsample_int_backward,
-    )
-
-    normalize_and_flip.launches = 0
-    upsample_int.launches = upsample_int_backward.launches = 0
-
-
-def run_training(dev) -> dict:
-    """Phase 5: the Trainer at full width; returns the launch counts of its
-    10 steps."""
-    from basi_tpu.config import get_config
+def run_training(dev, bn_impl: str) -> dict:
+    """Phase 5: ``Trainer.train`` at full width with ``model.bn_impl``;
+    returns the launch counts of its steps."""
+    from basi_tpu_torch.config import get_config
     from basi_tpu_torch.train.loop import Trainer
 
-    over = ["data.synthetic_orig_scale=1.0", "train.log_every=1"]
-    cfg = get_config("bench_accuracy", over)
-    trainer = Trainer(cfg, device=dev)
+    steps = PATH_STEPS[bn_impl]
+    cfg = get_config("bench_accuracy",
+                     TRAIN_OVERRIDES + [f"model.bn_impl={bn_impl}"])
+    trainer = Trainer(cfg)  # the default device, the card
+    _require(trainer.device == dev, f"Trainer ran on {trainer.device}")
     model = trainer.state.model
     params0 = {k: p.detach().clone() for k, p in model.named_parameters()}
     ema0 = {k: v.clone() for k, v in trainer.state.ema.items()}
@@ -383,27 +627,25 @@ def run_training(dev) -> dict:
               if k.endswith(("running_mean", "running_var"))}
     _zero_kernel_counts()
     t0 = time.perf_counter()
-    trainer.train(max_steps=TRAIN_STEPS)
+    trainer.train(max_steps=steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _kernel_counts()
-    print(f"trained {TRAIN_STEPS} steps of bench_accuracy ({cfg.model.backbone}, "
-          f"{cfg.model.image_size}^2, {cfg.model.dtype}, batch "
-          f"{cfg.data.batch_size}) in {wall:.2f} s, host feed and first-call "
-          f"set-up included; launches {launches}")
-    _require(launches == {"normalize_and_flip": TRAIN_STEPS,
-                          "upsample_int": 9 * TRAIN_STEPS,
-                          "upsample_int_bwd": 9 * TRAIN_STEPS},
-             f"expected 1 normalize_and_flip and 9 upsample_int forward and "
-             f"backward launches per step over {TRAIN_STEPS} steps, got "
-             f"{launches}")
+    print(f"trained {steps} steps of bench_accuracy, model.bn_impl={bn_impl} "
+          f"({cfg.model.backbone}, {cfg.model.image_size}^2, "
+          f"{cfg.model.dtype}, batch {cfg.data.batch_size}) in {wall:.2f} s, "
+          f"host feed and first-call set-up included; launches {launches}")
+    want = {k: n * steps for k, n in PER_STEP[bn_impl].items()}
+    _require(launches == want,
+             f"bn_impl={bn_impl}: expected {PER_STEP[bn_impl]} launches per "
+             f"step over {steps} steps, got {launches}")
     recs = trainer.records
-    _require(len(recs) == TRAIN_STEPS, f"{len(recs)} [train] records")
+    _require(len(recs) == steps, f"{len(recs)} [train] records")
     for r in recs:
         _require(all(np.isfinite(v) for v in r.values()),
                  f"non-finite [train] record {r}")
     print(f"losses {[round(r['loss'], 4) for r in recs]}; lr at step "
-          f"{TRAIN_STEPS} {recs[-1]['lr']:.3e}")
+          f"{steps} {recs[-1]['lr']:.3e}")
 
     def moved(before, after):
         return sum(not torch.equal(before[k], after[k]) for k in before)
@@ -417,41 +659,190 @@ def run_training(dev) -> dict:
              "a param, EMA tensor or BN statistic did not move")
     del trainer, model, params0, ema0, stats0
     torch.cuda.empty_cache()
-
-    # One repeated batch, no warmup: the loss must fall; the steady steps
-    # are timed.
-    cfg = get_config("bench_accuracy", over + ["train.warmup_steps=0"])
-    trainer = Trainer(cfg, device=dev)
-    batch = next(iter(trainer.feed.epoch(0)))
-    torch.cuda.reset_peak_memory_stats(dev)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    losses = []
-    for i in range(REPEAT_STEPS):
-        if i == TIMED_FROM:
-            start.record()
-        losses.append(trainer.train_step(trainer.state, batch)["loss"])
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (REPEAT_STEPS - TIMED_FROM)
-    losses = [float(v) for v in losses]
-    print(f"repeated batch, {REPEAT_STEPS} steps, losses "
-          f"{[round(v, 4) for v in losses]}")
-    _require(all(np.isfinite(losses)) and min(losses[-5:]) < losses[0],
-             "the loss did not fall over the repeated-batch steps")
-    print(f"train step ({cfg.model.dtype}, batch {cfg.data.batch_size}, "
-          f"{cfg.model.image_size}^2, steps "
-          f"{TIMED_FROM + 1}-{REPEAT_STEPS}): {ms:.3f} ms/step = "
-          f"{cfg.data.batch_size * 1000.0 / ms:.1f} imgs/s; peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
-    del trainer, batch
-    torch.cuda.empty_cache()
     return launches
 
 
-def check_f32_step(dev):
+def time_steps(dev) -> dict:
+    """Phase 5, timing: one repeated batch per ``model.bn_impl`` at
+    ``REPEATED_LR`` with no warmup; every loss of the second half must lie
+    below the first. After ``TIMED_FROM`` steps each, windows of ``WINDOW``
+    steps in ``TIMED_ORDER`` (CUDA events); returns the ms per step of each
+    window."""
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.train.loop import Trainer
+
+    runs = {}
+    for impl in PATH_STEPS:
+        cfg = get_config("bench_accuracy", TRAIN_OVERRIDES + [
+            f"model.bn_impl={impl}", "train.warmup_steps=0",
+            f"train.lr={REPEATED_LR}"])
+        trainer = Trainer(cfg, device=dev)
+        feed = trainer.feed.epoch(0)
+        batch = next(feed)
+        feed.close()  # stops the feed thread: nothing runs beside the steps
+        runs[impl] = (trainer, batch, [])
+    for trainer, batch, losses in runs.values():
+        for _ in range(TIMED_FROM):
+            losses.append(trainer.train_step(trainer.state, batch)["loss"])
+    torch.cuda.synchronize()
+    windows = {impl: [] for impl in runs}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for impl in TIMED_ORDER:
+        trainer, batch, losses = runs[impl]
+        start.record()
+        for _ in range(WINDOW):
+            losses.append(trainer.train_step(trainer.state, batch)["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        windows[impl].append(start.elapsed_time(end) / WINDOW)
+    device_ms = {impl: profile_steps(trainer, batch, losses, impl)
+                 for impl, (trainer, batch, losses) in runs.items()}
+    n = runs["xla"][0].cfg.data.batch_size
+    for impl, (trainer, _, losses) in runs.items():
+        losses = [float(v) for v in losses]
+        print(f"repeated batch, bn_impl={impl}, {len(losses)} steps, losses "
+              f"{[round(v, 4) for v in losses]}")
+        _require(all(np.isfinite(losses))
+                 and max(losses[len(losses) // 2:]) < losses[0],
+                 f"bn_impl={impl}: the loss did not fall over the "
+                 "repeated-batch steps")
+        ms = sum(windows[impl]) / len(windows[impl])
+        print(f"train step bn_impl={impl} (bf16, batch {n}, "
+              f"{trainer.cfg.model.image_size}^2, windows of {WINDOW} steps "
+              f"in turns {'/'.join(TIMED_ORDER)}): "
+              f"{' and '.join(f'{w:.3f}' for w in windows[impl])} ms/step, "
+              f"mean {ms:.3f} ms/step = {n * 1000.0 / ms:.1f} imgs/s; "
+              f"device busy {100 * device_ms[impl] / ms:.1f}% (the profile's "
+              f"device ms over this step time)")
+    del runs
+    torch.cuda.empty_cache()
+    return windows
+
+
+# batch of the f32 check: the CPU's float64 reference fits at full width
+F32_BATCH = 4
+
+
+def check_bn_impls_agree(dev) -> None:
+    """Phase 5, f32 against float64: the full-width model at batch
+    ``F32_BATCH``, the same weights, batch and flips; one forward and
+    backward in f32 on the card (TF32 off) in each ``model.bn_impl``, and in
+    float64 on the CPU (``xla``). Each f32 loss lies within 2e-5 relative of
+    the float64 one, and each f32 gradient (all params as one vector) within
+    5e-2 of it in norm. The bound is loose because the early trunk layers'
+    f32 gradients are good to only 1-2% at full width, in every setting
+    (rounding amplified by the step, as in the tiny model); a wrong BN
+    backward misses by the gradient's own size."""
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.train.loop import Trainer
+    from basi_tpu_torch.train.step import draw_flip, loss_and_grads
+
+    def grads(impl, device, dtype):
+        cfg = get_config("bench_accuracy", TRAIN_OVERRIDES + [
+            f"model.bn_impl={impl}", "model.dtype=float32",
+            f"data.batch_size={F32_BATCH}"])
+        trainer = Trainer(cfg, device=device)
+        feed = trainer.feed.epoch(0)
+        batch = next(feed)
+        feed.close()
+        flip = draw_flip(trainer.state, F32_BATCH, cfg.data.hflip_prob,
+                         trainer.device)
+        model = trainer.state.model.to(dtype)
+        loss, _ = loss_and_grads(trainer.state, batch, flip, cfg.train,
+                                 cfg.data, dtype)
+        g = torch.cat([p.grad.detach().double().flatten().cpu()
+                       for p in model.parameters()])
+        del trainer, model, batch
+        torch.cuda.empty_cache()
+        return float(loss.detach()), g
+
+    t0 = time.perf_counter()
+    ref_loss, ref = grads("xla", "cpu", torch.float64)
+    print(f"float64 on the CPU, bn_impl=xla, batch {F32_BATCH}: loss "
+          f"{ref_loss:.8f} ({time.perf_counter() - t0:.1f} s)")
+    for impl in PATH_STEPS:
+        loss, g = grads(impl, dev, torch.float32)
+        rel_loss = abs(loss - ref_loss) / abs(ref_loss)
+        rel_g = float((g - ref).norm() / ref.norm())
+        worst = float((g - ref).abs().max() / ref.abs().max())
+        print(f"f32 on the card, bn_impl={impl}: loss {loss:.8f} "
+              f"({rel_loss:.1e} relative to float64's); gradient "
+              f"{rel_g:.2e} off in norm, largest difference {worst:.2e} "
+              f"of the largest gradient")
+        _require(rel_loss <= 2e-5 and rel_g <= 5e-2,
+                 f"bn_impl={impl}: f32 step far from the float64 one")
+
+
+PROFILED_STEPS = 3
+# device kernels by class: the first class one of whose fragments the
+# kernel's name holds
+KERNEL_CLASSES = [
+    ("bn_stats (ours)", ("bn_stats",)),
+    ("upsample_int and its backward (ours)", ("upsample_int",)),
+    ("normalize_and_flip (ours)", ("normalize_flip",)),
+    ("BatchNorm (framework)", ("batch_norm",)),
+    ("convolutions and GEMMs (cuDNN, cuBLAS)",
+     ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad", "dgrad", "fprop")),
+    ("GroupNorm", ("group_norm", "groupnorm")),
+    ("optimizer (foreach)", ("foreach", "multi_tensor")),
+    ("max-pool", ("max_pool", "maxpool")),
+    ("reductions, sort, gathers", ("reduce", "sort", "scan", "topk", "gather",
+                                   "index")),
+    ("copies and casts", ("copy", "cat", "fill")),
+    ("elementwise", ("elementwise",)),
+]
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    for cls, frags in KERNEL_CLASSES:
+        if any(f in low for f in frags):
+            return cls
+    return "other"
+
+
+def profile_steps(trainer, batch, losses, bn_impl: str) -> float:
+    """Phase 5: ``torch.profiler`` over ``PROFILED_STEPS`` repeated-batch
+    steps; prints device ms and launches per step by kernel class, and the
+    device's busy share of the (profiled) host step time. Returns the
+    device ms per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            losses.append(trainer.train_step(trainer.state, batch)["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    by_class: dict = {}
+    for evt in prof.key_averages():
+        # annotation ranges (``Optimizer.step#...``) would count twice
+        if evt.device_type != DeviceType.CUDA or "#" in evt.key:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        ms, n = by_class.get(_kernel_class(evt.key), (0.0, 0))
+        by_class[_kernel_class(evt.key)] = (ms + us / 1e3, n + evt.count)
+    total = sum(ms for ms, _ in by_class.values()) / PROFILED_STEPS
+    launches = sum(n for _, n in by_class.values()) // PROFILED_STEPS
+    print(f"profile bn_impl={bn_impl}, {PROFILED_STEPS} repeated-batch "
+          f"steps: host {wall:.3f} ms/step with the profiler on; device "
+          f"{total:.3f} ms/step in {launches} launches/step (busy "
+          f"{100 * total / wall:.1f}%)")
+    for cls, (ms, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms / PROFILED_STEPS:9.3f} ms {n // PROFILED_STEPS:6d} "
+              f"launches  {cls}")
+    return total
+
+
+def check_f32_step(dev, bn_impl: str):
     """Phase 6: one f32 train step of the tiny config on the card and on the
     CPU from the same weights and batch: loss and gradients within 1e-3."""
-    from basi_tpu.config import (
+    from basi_tpu_torch.config import (
         Config,
         DataConfig,
         InferConfig,
@@ -464,7 +855,8 @@ def check_f32_step(dev):
 
     cfg = Config(
         model=ModelConfig(backbone="resnet_tiny", fpn_channels=32,
-                          mask_channels=32, grid_size=8, image_size=64),
+                          mask_channels=32, grid_size=8, image_size=64,
+                          bn_impl=bn_impl),
         data=DataConfig(image_size=64, max_instances=4, hflip_prob=1.0),
         train=TrainConfig(grad_clip_norm=0.0, checkpoint_dir=""),
         infer=InferConfig(dtype="float32"))
@@ -488,14 +880,22 @@ def check_f32_step(dev):
         state = create_train_state(model, cfg.train)
         step = make_train_step(cfg.train, cfg.data, make_schedule(cfg.train, 10),
                                torch.float32)
+        _zero_kernel_counts()
         metrics = step(state, {k: v.to(device) for k, v in host.items()})
+        counts = _kernel_counts()
         out.append((float(metrics["loss"]),
-                    {k: p.grad.cpu() for k, p in model.named_parameters()}))
-    (loss_d, g_d), (loss_c, g_c) = out
+                    {k: p.grad.cpu() for k, p in model.named_parameters()},
+                    counts))
+    (loss_d, g_d, n_d), (loss_c, g_c, _) = out
+    bns = sum(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules())
+    _require(n_d["channel_moments"] == (bns if bn_impl == "fused" else 0)
+             and n_d["channel_dual_sums"] == n_d["channel_moments"],
+             f"f32 step bn_impl={bn_impl}: BN kernel launches {n_d}")
     err = max(float((g_d[k] - g_c[k]).abs().max()) for k in g_c)
     gmax = max(float(g.abs().max()) for g in g_c.values())
-    print(f"f32 train step card vs cpu: loss {loss_d:.6f} vs {loss_c:.6f}; "
-          f"max gradient difference {err:.3e} (largest gradient {gmax:.3e})")
+    print(f"f32 train step bn_impl={bn_impl} card vs cpu: loss {loss_d:.6f} "
+          f"vs {loss_c:.6f}; max gradient difference {err:.3e} (largest "
+          f"gradient {gmax:.3e}); card launches {n_d}")
     _require(abs(loss_d - loss_c) <= 1e-3 * max(1.0, abs(loss_c)),
              "f32 step: loss beyond 1e-3")
     for k in g_c:
@@ -508,7 +908,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from basi_tpu.config import get_config
+    from basi_tpu_torch.config import get_config
     from basi_tpu_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -528,36 +928,50 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(SEED)
     ui, us = check_kernels(dev, gen)
-
     ub, nf = check_training_kernels(dev, gen)
+    cm, cds = check_bn_kernels(dev, gen)
 
     cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"])
     sd = smoke_weights(cfg, gen)
     serve_launches = run_slice(cfg, sd, dev, gen)
     check_f32(cfg, sd, dev, gen)
     del sd
-    train_launches = run_training(dev)
-    check_f32_step(dev)
+    train_launches = {impl: run_training(dev, impl) for impl in PATH_STEPS}
+    time_steps(dev)
+    check_bn_impls_agree(dev)
+    for impl in ("xla", "fused"):
+        check_f32_step(dev, impl)
 
     # launches: each kernel's count over the path it serves, read right
-    # after that path's run (upsample_int: the training path)
+    # after that path's run (upsample_int: the xla training path; the BN
+    # kernels: the fused one)
     rows = [("upsample_int", "basi_tpu_torch/csrc/upsample_int.cu",
              "basi_tpu/ops/pallas/upsample_int.py:65", ui,
-             train_launches["upsample_int"]),
+             train_launches["xla"]["upsample_int"]),
             ("upsample_int_bwd", "basi_tpu_torch/csrc/upsample_int_bwd.cu",
              "basi_tpu/ops/pallas/upsample_int.py:264", ub,
-             train_launches["upsample_int_bwd"]),
+             train_launches["xla"]["upsample_int_bwd"]),
             ("upsample_sigmoid", "basi_tpu_torch/csrc/upsample_sigmoid.cu",
              "basi_tpu/ops/pallas/upsample_sigmoid.py:42", us,
              serve_launches["upsample_sigmoid"]),
             ("normalize_and_flip", "basi_tpu_torch/csrc/normalize_aug.cu",
              "basi_tpu/ops/pallas/normalize_aug.py:47", nf,
-             train_launches["normalize_and_flip"])]
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": n, "max_abs_err": r["max_abs_err"],
-         "ms": r["ms"], "plain_ms": r["plain_ms"]}
-        for name, src, rep, r, n in rows]}))
+             train_launches["xla"]["normalize_and_flip"]),
+            ("channel_moments", "basi_tpu_torch/csrc/bn_stats.cu",
+             "basi_tpu/ops/pallas/bn_stats.py:71", cm,
+             train_launches["fused"]["channel_moments"]),
+            ("channel_dual_sums", "basi_tpu_torch/csrc/bn_stats.cu",
+             "basi_tpu/ops/pallas/bn_stats.py:113", cds,
+             train_launches["fused"]["channel_dual_sums"])]
+    kernels = []
+    for name, src, rep, r, n in rows:
+        bound, by = _bound(r["bytes"], r["flops"])
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": n,
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": bound,
+                        "bound_by": by, "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

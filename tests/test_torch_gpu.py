@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the ``Trainer`` on its default device, the card.
 
 Every test is marked ``gpu`` and skips where no CUDA device is present. The
 file imports no JAX, so it runs on a machine without it:
@@ -12,14 +13,19 @@ backward within 1 bf16 ulp plus 2^-20 of the largest value (up to 4f^2 f32
 terms, and where they cancel the sums' rounding outweighs an ulp of the
 small result); ``upsample_sigmoid`` ``atol=1e-5`` on f32 probabilities;
 ``normalize_and_flip`` bit-exact (the same f32 operations in the same
-order, no FMA, one rounding). TF32 is off, so the plain versions' f32
-matmuls run in full f32.
+order, no FMA, one rounding); ``channel_moments`` and ``channel_dual_sums``
+within ``1e-5 * sum |term|`` per channel of the plain version (f32 sums of
+up to a million terms taken in another order) and bit-equal from one launch
+to the next (no atomics); ``FusedBatchNorm`` on the card within 1e-4 of the
+same module on the CPU. TF32 is off, so the plain versions' f32 matmuls run
+in full f32.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from basi_tpu_torch.kernels import bn_stats as B
 from basi_tpu_torch.kernels import normalize_aug as N
 from basi_tpu_torch.kernels import upsample_int as U
 from basi_tpu_torch.kernels import upsample_sigmoid as S
@@ -204,3 +210,170 @@ def test_gpu_normalize_and_flip_refuses_flags_elsewhere():
     with pytest.raises(ValueError):
         N.normalize_and_flip(imgs[:, :, ::2], torch.zeros(2, dtype=torch.int32,
                                                          device=dev))
+
+
+# (N, H, W, C), dtype: ragged row counts, C not a multiple of the 16-byte
+# vector (bf16: 20; f32: 12 and 7), and training shapes at batch 16.
+BN_CASES = [
+    ((2, 8, 8, 64), torch.bfloat16), ((3, 5, 7, 24), torch.bfloat16),
+    ((1, 3, 5, 20), torch.bfloat16), ((2, 9, 11, 12), torch.float32),
+    ((1, 1, 1, 7), torch.float32), ((16, 64, 64, 64), torch.bfloat16),
+    ((16, 32, 32, 1024), torch.bfloat16), ((4, 16, 16, 2048), torch.float32),
+    ((16, 256, 256, 64), torch.bfloat16),
+]
+
+
+def assert_sums_close(got, want, absum, msg=""):
+    """Per channel within 1e-5 of the sum of the terms' magnitudes."""
+    for g, w, a in zip(got, want, absum):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        bad = (g.double() - w.double()).abs() > 1e-5 * a.double()
+        assert not bad.any(), (
+            f"{msg}: {int(bad.sum())} channels beyond the bound, max diff "
+            f"{float((g - w).abs().max())}")
+
+
+def _nhwc(rng, shape, dtype, dev, loc=0.0):
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32) * 2 + loc
+                            ).to(dev, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", BN_CASES)
+def test_gpu_channel_moments_kernel_matches_plain(rng, shape, dtype):
+    dev = _cuda()
+    x = _nhwc(rng, shape, dtype, dev, loc=0.5)
+    n0 = B.channel_moments.launches
+    got = B.channel_moments(x)
+    again = B.channel_moments(x)
+    torch.cuda.synchronize()
+    assert B.channel_moments.launches == n0 + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), "two launches differ"
+    xf = x.float()
+    absum = (xf.abs().sum((0, 1, 2)), (xf * xf).sum((0, 1, 2)))
+    assert_sums_close(got, B.channel_moments_reference(x), absum, f"{shape}")
+    # the NHWC view of a channels_last NCHW tensor is the same memory
+    xcl = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    for a, b in zip(B.channel_moments(xcl.permute(0, 2, 3, 1)), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", BN_CASES)
+def test_gpu_channel_dual_sums_kernel_matches_plain(rng, shape, dtype):
+    dev = _cuda()
+    g = _nhwc(rng, shape, dtype, dev)
+    x = _nhwc(rng, shape, dtype, dev, loc=0.5)
+    n0 = B.channel_dual_sums.launches
+    got = B.channel_dual_sums(g, x)
+    again = B.channel_dual_sums(g, x)
+    torch.cuda.synchronize()
+    assert B.channel_dual_sums.launches == n0 + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), "two launches differ"
+    gf, xf = g.float(), x.float()
+    absum = (gf.abs().sum((0, 1, 2)), (gf * xf).abs().sum((0, 1, 2)))
+    assert_sums_close(got, B.channel_dual_sums_reference(g, x), absum,
+                      f"{shape}")
+
+
+@pytest.mark.gpu
+def test_gpu_bn_stats_refuse_what_the_kernel_cannot_take():
+    dev = _cuda()
+    x = torch.zeros(2, 4, 4, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        B.channel_moments(x.permute(0, 2, 1, 3))
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        B.channel_dual_sums(x[:, :, ::2], x[:, :, ::2])
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        B.channel_moments(x.half())
+    with pytest.raises(ValueError, match="does not match"):
+        B.channel_dual_sums(x.float(), x)
+    n0 = B.channel_moments.launches
+    empty = B.channel_moments(x[:0])
+    assert B.channel_moments.launches == n0
+    assert empty[0].shape == (16,) and not empty[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["full", "stats"])
+def test_gpu_fused_batch_norm_matches_cpu(rng, mode):
+    """f32 train forward, running statistics and the gradients of x, scale
+    and bias on the card (the kernels) against the CPU (their plain
+    versions): within 1e-4 relative to each tensor's largest magnitude;
+    the launches are one channel_moments per forward and, in mode full,
+    one channel_dual_sums per backward."""
+    from basi_tpu_torch.models.layers import update_running_stats
+    from basi_tpu_torch.models.norm import FusedBatchNorm
+
+    dev = _cuda()
+    x0 = torch.from_numpy(rng.randn(8, 64, 16, 16).astype(np.float32) * 3 + 1)
+    # channels_last, as the model's gradients arrive
+    w = torch.from_numpy(rng.randn(8, 64, 16, 16).astype(np.float32)).contiguous(
+        memory_format=torch.channels_last)
+    out = []
+    for d in (dev, "cpu"):
+        bn = FusedBatchNorm(64, mode=mode).to(d)
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 64))
+            bn.bias.copy_(torch.linspace(-1, 1, 64))
+        x = x0.to(d).contiguous(memory_format=torch.channels_last)
+        x.requires_grad_()
+        n0 = (B.channel_moments.launches, B.channel_dual_sums.launches)
+        y = bn(x, train=True)
+        (torch.tanh(y) * w.to(d)).sum().backward()
+        update_running_stats([bn])
+        n1 = (B.channel_moments.launches, B.channel_dual_sums.launches)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            assert (n1[0] - n0[0], n1[1] - n0[1]) == (
+                1, 1 if mode == "full" else 0)
+        out.append([t.detach().cpu() for t in (
+            y, x.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+            bn.running_var)])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_gpu_fused_batch_norm_refuses_a_gradient_in_another_layout():
+    """The backward reads the gradient as the NHWC view of a channels_last
+    tensor, the layout the model hands it; an NCHW-contiguous gradient
+    raises instead of being copied."""
+    from basi_tpu_torch.models.norm import FusedBatchNorm
+
+    dev = _cuda()
+    bn = FusedBatchNorm(16).to(dev)
+    x = torch.randn(2, 16, 8, 8, device=dev).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    y = bn(x, train=True)
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        y.backward(torch.randn(2, 16, 8, 8, device=dev))
+
+
+@pytest.mark.gpu
+def test_gpu_trainer_runs_on_the_default_card():
+    """The default device is the current CUDA device with its index, which
+    the Trainer's feed thread sets as its own before it copies a batch."""
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.device import resolve_device
+    from basi_tpu_torch.train.loop import Trainer
+
+    _cuda()
+    assert resolve_device() == torch.device("cuda",
+                                            torch.cuda.current_device())
+    cfg = get_config("", [
+        "model.backbone=resnet_tiny", "model.fpn_channels=32",
+        "model.mask_channels=32", "model.grid_size=8", "model.num_slots=8",
+        "model.image_size=64", "data.image_size=64", "data.max_instances=4",
+        "data.batch_size=2", "data.synthetic_n=4", "train.checkpoint_dir="])
+    trainer = Trainer(cfg)
+    feed = trainer.feed.epoch(0)
+    batch = next(feed)
+    feed.close()
+    assert trainer.device == resolve_device()
+    assert all(t.device == trainer.device for t in batch.values())
+    metrics = trainer.train_step(trainer.state, batch)
+    assert np.isfinite(float(metrics["loss"]))

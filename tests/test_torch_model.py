@@ -77,7 +77,7 @@ def _jax_outputs(cfg, params, stats, x, dtype):
 def test_f32_model_matches_jax(setup):
     cfg, params, stats, x = setup
     want = _jax_outputs(cfg, params, stats, x, jnp.float32)
-    model = create_model(cfg.model)
+    model = create_model(cfg.model, "cpu")
     load_jax_variables(model, params, stats)
     with torch.no_grad():
         out = model(torch.from_numpy(x))
@@ -91,7 +91,7 @@ def test_f32_model_matches_jax(setup):
 def test_bf16_model_matches_jax(setup):
     cfg, params, stats, x = setup
     want = _jax_outputs(cfg, params, stats, x, jnp.bfloat16)
-    model = create_model(cfg.model)
+    model = create_model(cfg.model, "cpu")
     load_jax_variables(model, params, stats)
     model = model.to(torch.bfloat16)
     xb = torch.from_numpy(x).to(torch.bfloat16)
@@ -108,7 +108,7 @@ def test_bf16_model_matches_jax(setup):
 
 def test_state_dict_loads_strict_with_no_missing_or_unexpected_keys(setup):
     cfg, params, stats, _ = setup
-    model = create_model(cfg.model)
+    model = create_model(cfg.model, "cpu")
     sd = export_basinet(params, stats, stage_sizes=model.stage_sizes)
     res = model.load_state_dict(
         {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
@@ -119,7 +119,7 @@ def test_state_dict_loads_strict_with_no_missing_or_unexpected_keys(setup):
 
 def test_channels_last_outputs_are_free_nhwc_views(setup):
     cfg, _, _, x = setup
-    model = create_model(cfg.model)
+    model = create_model(cfg.model, "cpu")
     with torch.no_grad():
         out = model(torch.from_numpy(x))
     for k in OUTPUTS:
@@ -128,9 +128,9 @@ def test_channels_last_outputs_are_free_nhwc_views(setup):
 
 def test_random_init_is_seeded_and_device_independent(setup):
     cfg = setup[0]
-    a = create_model(cfg.model, generator=torch.Generator().manual_seed(3))
-    b = create_model(cfg.model, generator=torch.Generator().manual_seed(3))
-    c = create_model(cfg.model, generator=torch.Generator().manual_seed(4))
+    a = create_model(cfg.model, "cpu", generator=torch.Generator().manual_seed(3))
+    b = create_model(cfg.model, "cpu", generator=torch.Generator().manual_seed(3))
+    c = create_model(cfg.model, "cpu", generator=torch.Generator().manual_seed(4))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["backbone.conv1.weight"],
@@ -142,7 +142,8 @@ def test_roi_checkpoint_is_refused(setup):
     cfg, params, stats, _ = setup
     roi_params = {k: v for k, v in params.items() if k != "instance"}
     with pytest.raises(ValueError, match="instance"):
-        load_jax_variables(create_model(cfg.model), roi_params, stats)
+        load_jax_variables(create_model(cfg.model, "cpu"), roi_params,
+                           stats)
 
 
 @pytest.mark.parametrize("overrides", [
@@ -158,10 +159,10 @@ def test_roi_checkpoint_is_refused(setup):
 def test_unported_settings_raise_not_implemented(overrides):
     cfg = get_config("val_v4-8_ap", overrides)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Inferencer(cfg)
+        Inferencer(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("kwargs", [{"aot_path": "x"}, {"checkpoint": "x"}])
 def test_unported_predictor_sources_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        BatchedPredictor(tiny_config(), **kwargs)
+        BatchedPredictor(tiny_config(), device="cpu", **kwargs)

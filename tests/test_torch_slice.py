@@ -10,7 +10,8 @@ wherever neighbouring scores differ by more than 1e-3 (closer scores may
 swap: their order is a rounding decision). At least one slot is filled.
 
 The ``BatchedPredictor`` behaviours of ``tests/test_serve.py`` follow, and
-a subprocess checks that the port imports neither jax nor flax.
+a subprocess checks that the port loads neither jax, flax nor the JAX
+package.
 """
 
 import os
@@ -71,7 +72,7 @@ def assert_slots_match(got_scores, got_masks, want_scores, want_masks):
 def test_inferencer_matches_jax(case):
     cfg, params, stats, images, want = case
     assert (want["scores"] > 0).any(), "no slot filled: selection untested"
-    inf = Inferencer(cfg, params=params, batch_stats=stats)
+    inf = Inferencer(cfg, device="cpu", params=params, batch_stats=stats)
     masks, scores, sal = inf.predict_batch(images)
     assert masks.shape == want["masks"].shape and masks.dtype == torch.float32
     assert scores.shape == want["scores"].shape
@@ -86,7 +87,7 @@ def test_inferencer_matches_jax(case):
 
 def test_batched_predictor_matches_jax(case):
     cfg, params, stats, images, want = case
-    p = BatchedPredictor(cfg, max_wait_ms=200, params=params,
+    p = BatchedPredictor(cfg, max_wait_ms=200, device="cpu", params=params,
                          batch_stats=stats)
     try:
         out = [None] * BATCH
@@ -178,7 +179,8 @@ def test_select_instances_from_kernels_matches_jax(nms, slots):
 
 @pytest.fixture(scope="module")
 def predictor():
-    p = BatchedPredictor(tiny_config(batch_size=4), max_wait_ms=20)
+    p = BatchedPredictor(tiny_config(batch_size=4), max_wait_ms=20,
+                         device="cpu")
     yield p
     p.close()
 
@@ -225,7 +227,7 @@ def test_predict_timeout_on_full_queue(rng):
     """With the worker wedged and the queue at max_pending, predict(timeout)
     raises TimeoutError instead of blocking forever."""
     p = BatchedPredictor(tiny_config(batch_size=2), max_wait_ms=1,
-                         max_pending=1)
+                         max_pending=1, device="cpu")
     release, entered = threading.Event(), threading.Event()
 
     def wedged(images):
@@ -263,7 +265,8 @@ def test_predict_timeout_on_full_queue(rng):
 
 
 def test_worker_death_surfaces_to_callers(rng):
-    p = BatchedPredictor(tiny_config(batch_size=2), max_wait_ms=1)
+    p = BatchedPredictor(tiny_config(batch_size=2), max_wait_ms=1,
+                         device="cpu")
     try:
         orig_get = p._q.get
 
@@ -285,7 +288,8 @@ def test_worker_death_surfaces_to_callers(rng):
 def test_close_fails_waiting_callers(rng):
     """close() with a request still queued fails that caller ('predictor
     closed' or 'worker exited') instead of leaving it blocked."""
-    p = BatchedPredictor(tiny_config(batch_size=2), max_wait_ms=1)
+    p = BatchedPredictor(tiny_config(batch_size=2), max_wait_ms=1,
+                         device="cpu")
     release, entered = threading.Event(), threading.Event()
 
     def slow(images):
@@ -321,7 +325,8 @@ def test_close_fails_waiting_callers(rng):
 
 
 def test_predict_after_close_raises(rng):
-    p = BatchedPredictor(tiny_config(batch_size=2), max_wait_ms=1)
+    p = BatchedPredictor(tiny_config(batch_size=2), max_wait_ms=1,
+                         device="cpu")
     p.close()
     with pytest.raises(RuntimeError, match="closed"):
         p.predict(_img(rng))
@@ -330,8 +335,8 @@ def test_predict_after_close_raises(rng):
 _NO_JAX = """
 import sys
 import numpy as np
-from basi_tpu.config import (Config, DataConfig, InferConfig, ModelConfig,
-                             TrainConfig)
+from basi_tpu_torch.config import (Config, DataConfig, InferConfig,
+                                   ModelConfig, TrainConfig)
 import basi_tpu_torch
 cfg = Config(
     model=ModelConfig(backbone="resnet_tiny", fpn_channels=32,
@@ -341,28 +346,20 @@ cfg = Config(
                     max_instances=4),
     train=TrainConfig(checkpoint_dir="", ema_decay=0.9),
     infer=InferConfig(batch_size=2, dtype="float32", pre_nms_top_k=16))
-inf = basi_tpu_torch.Inferencer(cfg)
+inf = basi_tpu_torch.Inferencer(cfg, device="cpu")
 masks, scores, _ = inf.predict_batch(np.zeros((2, 64, 64, 3), np.uint8))
 full = inf.full_res_masks(masks)
 assert tuple(full.shape) == (2, 8, 64, 64), full.shape
 import contextlib, io
-trainer = basi_tpu_torch.Trainer(cfg)
+trainer = basi_tpu_torch.Trainer(cfg, device="cpu")
 with contextlib.redirect_stdout(io.StringIO()):  # the [train] record
     rec = trainer.train(max_steps=1)
 assert rec["step"] == 1 and np.isfinite(rec["loss"]), rec
 params, stats = basi_tpu_torch.to_jax_variables(trainer.state.model)
 assert "backbone" in params and "backbone" in stats
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "basi_tpu"))
 assert not bad, bad
-# basi_tpu.convert's package __init__ brings in the (jax-free)
-# torch_import beside torch_export; the trainer reads the numpy-only
-# dataset module.
-ours = sorted(m for m in sys.modules if m.split(".")[0] == "basi_tpu")
-assert set(ours) <= {"basi_tpu", "basi_tpu.config", "basi_tpu.convert",
-                     "basi_tpu.convert.torch_export",
-                     "basi_tpu.convert.torch_import",
-                     "basi_tpu.convert.full_import",
-                     "basi_tpu.data", "basi_tpu.data.datasets"}, ours
 print("ok")
 """
 

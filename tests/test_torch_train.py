@@ -28,8 +28,10 @@ import torch
 from basi_tpu.config import get_config
 from basi_tpu.data import transforms as jax_transforms
 from basi_tpu.models.basi import BASIOutputs as JaxOutputs
+from basi_tpu.models import norm as jax_norm
 from basi_tpu.models.basi import create_model as jax_create_model
 from basi_tpu.ops import losses as jax_losses
+from basi_tpu.ops.pallas import bn_stats as jax_bn_stats
 from basi_tpu.ops.resize import maxpool_hw as jax_maxpool_hw
 from basi_tpu.train import loss as jax_loss
 from basi_tpu.train import targets as jax_targets
@@ -228,7 +230,7 @@ def test_train_mode_forward_and_bn_stats_match_jax():
     want, mutated = jmodel.apply({"params": params, "batch_stats": stats},
                                  jnp.asarray(x), train=True,
                                  with_candidates=False, mutable=["batch_stats"])
-    model = create_model(cfg.model, train=True)
+    model = create_model(cfg.model, "cpu", train=True)
     load_jax_variables(model, params, stats)
     with torch.no_grad():
         got = model(_t(x))
@@ -252,7 +254,7 @@ def test_train_mode_forward_and_bn_stats_match_jax():
 def test_to_jax_variables_round_trips_the_jax_tree():
     cfg = tiny_config()
     params, stats = jax_variables(cfg)
-    model = create_model(cfg.model)
+    model = create_model(cfg.model, "cpu")
     load_jax_variables(model, params, stats)
     p2, s2 = to_jax_variables(model)
     assert_trees_close(p2, params, 0.0)
@@ -285,7 +287,7 @@ def _run_steps(cfg, dtype: str, monkeypatch, n_steps: int = 2):
         cfg.model, dtype=dtype, param_dtype=dtype))
     rng = np.random.RandomState(7)
     batches = [tiny_batch(rng, n=4) for _ in range(n_steps)]
-    model = create_model(cfg.model, train=True).to(tdtype)
+    model = create_model(cfg.model, "cpu", train=True).to(tdtype)
     names = [k for k, _ in model.named_parameters()]
     tgrads: list = []
     real_clip = TSTEP.clip_by_global_norm
@@ -380,6 +382,42 @@ def test_train_steps_match_jax(hflip, clip, monkeypatch):
                            params0["fpn"]["smooth0"]["kernel"])
 
 
+class _Float32As64:
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+@pytest.mark.parametrize("bn_impl", ["fused", "stats"])
+def test_fused_bn_train_steps_match_jax(bn_impl, monkeypatch):
+    """``model.bn_impl`` fused or stats on both sides, two steps in float64,
+    hflip 1, clipping active: the tolerances of ``test_train_steps_match_jax``
+    (loss 1e-4 relative, metrics 1e-4, gradients 1e-3 of the largest,
+    params, BN statistics and EMA 1e-5). On the CPU the port's BNs run the
+    ``bn_stats`` kernels' plain versions and the hand-written backward.
+
+    The JAX ``FusedBatchNorm`` casts x, scale, bias and its sums to f32
+    whatever its input, so under x64 it would still normalize in f32 and
+    this would compare f32 BN against f64 BN (a gradient entry 0.026 apart
+    against a bound of 0.009). Its modules read ``jnp.float32`` at trace
+    time; for this test they read float64, so both sides compute the same
+    function in float64 (the JAX package is not changed)."""
+    monkeypatch.setattr(jax_norm, "jnp", _Float32As64())
+    monkeypatch.setattr(jax_bn_stats, "jnp", _Float32As64())
+    cfg = tiny_config(batch_size=4)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, bn_impl=bn_impl),
+        data=dataclasses.replace(cfg.data, hflip_prob=1.0),
+        train=dataclasses.replace(cfg.train, lr=0.01, schedule="cosine",
+                                  grad_clip_norm=0.05, ema_decay=0.999,
+                                  warmup_steps=0))
+    for out in _run_steps(cfg, "float64", monkeypatch):
+        _assert_step_matches(*out, 1e-3)
+
+
 def test_f32_train_step_matches_jax(monkeypatch):
     """One f32 step on both sides (hflip 0, clipping active): loss within
     1e-4 relative, each metric within 1e-4, every gradient within 1e-3 of
@@ -430,13 +468,13 @@ def test_clip_by_global_norm_is_optax_formula(rng):
 # --- the trainer --------------------------------------------------------------
 
 def test_trainer_runs_three_steps_on_cpu(capsys):
-    """``Trainer(cfg).train(max_steps=3)``: finite loss, a ``[train]``
+    """``Trainer(cfg, device="cpu").train(max_steps=3)``: finite loss, a ``[train]``
     record per step, the step count and the EMA advanced."""
     cfg = tiny_config(batch_size=4)
     cfg = dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, synthetic_n=16),
         train=dataclasses.replace(cfg.train, ema_decay=0.99))
-    tr = Trainer(cfg)
+    tr = Trainer(cfg, device="cpu")
     ema0 = {k: v.clone() for k, v in tr.state.ema.items()}
     last = tr.train(max_steps=3)
     assert tr.state.step == 3 and last["step"] == 3
@@ -456,7 +494,7 @@ def test_trainer_runs_three_steps_on_cpu(capsys):
     ["train.grad_accum=2"],
     ["train.steps_per_dispatch=2"],
     ["train.freeze_bn=true"],
-    ["model.bn_impl=fused"],
+    ["model.refine=true"],
     ["train.optimizer=adamw"],
     ["train.remat=true"],
     ["train.checkpoint_dir=ckpt"],
@@ -469,4 +507,4 @@ def test_unported_training_settings_raise(overrides):
                                         "model.image_size=64",
                                         "data.image_size=64", *overrides])
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer(cfg)
+        Trainer(cfg, device="cpu")
