@@ -39,12 +39,13 @@ SIGNATURES = {
     # x, y, b, h, w, oh, ow, stream
     "basi_upsample_sigmoid_f32": (_P, _P, _I, _I, _I, _I, _I, _P),
     "basi_upsample_sigmoid_bf16": (_P, _P, _I, _I, _I, _I, _I, _P),
-    # x, ws, out, rows, c, groups per block, row splits, stream
-    "basi_channel_moments_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "basi_channel_moments_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # g, x, ws, out, rows, c, groups per block, row splits, stream
-    "basi_channel_dual_sums_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "basi_channel_dual_sums_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x (or g, x), ws, counters, out, scale, bias, mean, inv, rows (= M), c,
+    # groups per block, slabs, rows per slab, epilogue, eps, stream
+    **{name: (_P,) * 9 + (_I,) * 6 + (ctypes.c_float, _P) for name in (
+        "basi_channel_moments_bf16", "basi_channel_moments_f32",
+        "basi_channel_dual_sums_bf16", "basi_channel_dual_sums_f32")},
+    # dual, f32, blocks (out)
+    "basi_bn_stats_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),
 }
 
 _lock = threading.Lock()

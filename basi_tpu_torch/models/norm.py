@@ -2,8 +2,8 @@
 
 ``model.bn_impl`` picks every trunk BN: ``"xla"`` is ``layers.BatchNorm2d``
 (the framework's batch norm); ``"fused"`` and ``"stats"`` are
-``FusedBatchNorm``, whose batch statistics come from the
-``channel_moments`` kernel (``kernels/bn_stats.py``):
+``FusedBatchNorm``, whose batch statistics come from the ``channel_moments``
+kernel (``kernels/bn_stats.py``):
 
 forward:   mu = Sx/M, var = max(Sx2/M - mu^2, 0) (one pass), inv = rsqrt(var+eps)
            y  = x*a + b with a = scale*inv, b = bias - mu*a, in f32, cast once
@@ -14,6 +14,12 @@ backward ("fused", ``bn_train_apply``): (Sg, Sgx) from ``channel_dual_sums``;
 backward ("stats", ``batch_moments``): only the moments have a hand-written
            backward, the elementwise dx = g_mean/M + 2x*g_msq/M; the apply
            is a plain expression that autograd differentiates.
+
+In mode "fused" the kernels compute every per-channel term in their last
+block (``bn_forward_terms``, ``bn_backward_terms``): one launch each way, and
+here only the two elementwise passes over x remain. In mode "stats" the
+kernel returns the means (``channel_means``) and the rest is
+``bn_forward_math`` in plain tensor operations.
 
 The one-pass variance is what the TPU kernel feeds, and it is mirrored:
 where a channel's mean dwarfs its spread it cancels in f32, as the JAX
@@ -28,7 +34,12 @@ from __future__ import annotations
 
 import torch
 
-from basi_tpu_torch.kernels.bn_stats import channel_dual_sums, channel_moments
+from basi_tpu_torch.kernels.bn_stats import (
+    bn_backward_terms,
+    bn_forward_math,
+    bn_forward_terms,
+    channel_means,
+)
 from basi_tpu_torch.models.layers import BatchNorm2d
 
 
@@ -44,41 +55,35 @@ def _count(x: torch.Tensor) -> int:
     return x.shape[0] * x.shape[2] * x.shape[3]
 
 
-def _normalize(x, scale, bias, mean, mean2, eps):
-    """(y, var, inv): the forward math after the moments."""
-    var = torch.clamp_min(mean2 - mean * mean, 0.0)
-    inv = torch.rsqrt(var + eps)
-    a = scale.to(inv.dtype) * inv
-    b = bias.to(inv.dtype) - mean * a
-    y = (x * _per_channel(a)).add_(_per_channel(b)).to(x.dtype)
-    return y, var, inv
+def _apply(x, a, b):
+    """y = x*a + b in f32 (a and b per channel), cast to x's dtype once."""
+    return (x * _per_channel(a)).add_(_per_channel(b)).to(x.dtype)
+
+
+def _input_gradient(gy, x, mean, a, a_mg, a_inv_mgxn):
+    """dx = a*g - a*m_g - (a*inv*m_gxn)*(x - mean) in f32, cast once."""
+    dx = gy * _per_channel(a)
+    dx.sub_(_per_channel(a_mg))
+    xc = (x - _per_channel(mean)).mul_(_per_channel(a_inv_mgxn))
+    return dx.sub_(xc).to(x.dtype)
 
 
 class _BNTrainApply(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        sx, sx2 = channel_moments(_nhwc(x))
-        m = _count(x)
-        mean, mean2 = sx / m, sx2 / m
-        y, var, inv = _normalize(x, scale, bias, mean, mean2, eps)
+        mean, var, inv, a, b = bn_forward_terms(_nhwc(x), scale, bias, eps)
         ctx.save_for_backward(x, scale, mean, inv)
         ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        return _apply(x, a, b), mean, var
 
     @staticmethod
     def backward(ctx, gy, _g_mean, _g_var):
         # mean and var only feed the running update: no cotangent
         x, scale, mean, inv = ctx.saved_tensors
-        sg, sgx = channel_dual_sums(_nhwc(gy), _nhwc(x))
-        m = _count(x)
-        sgxn = (sgx - mean * sg) * inv  # sum of g * xn
-        m_g, m_gxn = sg / m, sgxn / m
-        a = scale.to(inv.dtype) * inv
-        dx = gy * _per_channel(a)
-        dx.sub_(_per_channel(a * m_g))
-        xc = (x - _per_channel(mean)).mul_(_per_channel(a * inv * m_gxn))
-        dx = dx.sub_(xc).to(x.dtype)
-        return dx, sgxn.to(scale.dtype), sg.to(scale.dtype), None
+        dscale, dbias, a, a_mg, a_inv_mgxn = bn_backward_terms(
+            _nhwc(gy), _nhwc(x), scale, mean, inv)
+        dx = _input_gradient(gy, x, mean, a, a_mg, a_inv_mgxn)
+        return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None
 
 
 def bn_train_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -92,10 +97,8 @@ def bn_train_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 class _BatchMoments(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        sx, sx2 = channel_moments(_nhwc(x))
-        m = _count(x)
         ctx.save_for_backward(x)
-        return sx / m, sx2 / m
+        return channel_means(_nhwc(x))
 
     @staticmethod
     def backward(ctx, g_mean, g_msq):
@@ -131,9 +134,9 @@ class FusedBatchNorm(BatchNorm2d):
         if not train:
             return super().forward(x, False)
         if self.mode == "stats":
-            mean, mean2 = batch_moments(x)
-            y, var, _ = _normalize(x, self.weight, self.bias, mean, mean2,
-                                   self.eps)
+            mean, var, _, a, b = bn_forward_math(
+                *batch_moments(x), self.weight, self.bias, self.eps)
+            y = _apply(x, a, b)
         else:
             y, mean, var = bn_train_apply(x, self.weight, self.bias, self.eps)
         self.batch_stats = (mean.detach(), var.detach())

@@ -8,7 +8,9 @@
    ``build/kernels/``).
 2. Holds each kernel against its plain PyTorch version on the card at every
    shape the serving and training paths give it, with times (CUDA events,
-   after warm-up): ``upsample_int`` within 1 bf16 ulp and its backward
+   after warm-up, and the kernels' device time, queued behind a spinning
+   kernel so that no host time counts):
+   ``upsample_int`` within 1 bf16 ulp and its backward
    within 1 bf16 ulp plus 2^-20 of the largest value (cancelling f32 sums),
    ``upsample_sigmoid`` within 1e-5, ``normalize_and_flip`` bit-exact (bf16
    and f32 out, mixed flip flags), and ``torch.autograd.grad`` through
@@ -17,8 +19,18 @@
    ResNet-50's 53 BatchNorms at 512^2, batch 16, bf16, and at two shapes in
    f32: per channel within ``1e-5 * sum |term|`` of the plain version (f32
    sums of up to a million terms in another order), and two launches bit
-   for bit equal. Their inputs rotate through copies larger than the L2
-   cache, so each call reads from device memory as the step's would.
+   for bit equal; then the same kernels with the BatchNorm's per-channel
+   math in their last block (``channel_means``, ``bn_forward_terms``,
+   ``bn_backward_terms``) against that math in plain PyTorch on the
+   kernels' own sums, each term within 1e-5 of its largest magnitude, and
+   y and dx of the module's elementwise passes on them within 1 bf16 ulp
+   (dx plus 2^-20 of its largest: its terms cancel). Their inputs rotate
+   through copies larger than the L2 cache, so each call reads from device
+   memory as the step's would. Last, the BN kernels' device time at the 12
+   shapes on grids of 2 to 5 blocks per SM and built with other choices
+   (16 loads in flight, no last block, launch only: ``BN_VARIANTS``), and
+   the host's time to enqueue one call of each BN entry point and of the
+   library calls (``sweep_bn_layout``): what the design was chosen from.
 3. Drives the serving path at full width: preset ``val_v4-8_ap`` (ResNet-50,
    512^2, bf16, batch 8) with seeded random weights, objectness bias 0 and
    non-trivial BN stats. A ``BatchedPredictor`` answers 16 concurrent
@@ -45,11 +57,11 @@
    the loss down (every loss of the second half below the first); after 5
    steps the three are timed in turns (xla, fused, stats, stats, fused,
    xla; 10 steps a window, CUDA events), then ``torch.profiler`` traces 3
-   more steps of each: device ms and launches per step by kernel class, and
-   the device's busy share (the profile's device ms over the event step
-   time). Last, the model at batch 4 takes one forward and backward of the
-   same batch in f32 on the card (TF32 off) in each setting and in float64
-   on the CPU: each f32 loss within 2e-5 relative of the float64 one, each
+   more steps of each: device ms and launches per step by kernel class
+   (``bn_stats (ours)``: one launch a BN call), and the device's busy
+   share (the profile's device ms over the event step time). Last, the model at batch 4 takes one
+   forward and backward of the same batch in f32 on the card (TF32 off) in
+   each setting and in float64 on the CPU: each f32 loss within 2e-5 relative of the float64 one, each
    f32 gradient within 5e-2 of it in norm (f32 gradients of the early
    trunk layers are good to 1-2% at full width).
 6. f32 step, card vs CPU: one train step of the tiny config (TF32 off) from
@@ -67,7 +79,8 @@ kernels over the 10 ``fused`` steps), ``max_abs_err`` (against its plain
 version) and, per forward or step (nine ``upsample_int`` calls of a
 serving forward, nine backward calls and one ``normalize_and_flip`` of a
 training step, one ``upsample_sigmoid`` call, 53 calls of each BN
-kernel), ``ms`` and ``plain_ms`` (CUDA events), ``bound_ms`` and
+kernel), ``ms`` and ``plain_ms`` (CUDA events), ``device_ms`` (the
+kernels run back to back, no host time), ``bound_ms`` and
 ``bound_by`` (compulsory bytes over 3.35 TB/s or f32 operations over 67
 TFLOP/s, the larger, from this run's inputs) and ``library_ms`` (the one
 PyTorch call that computes the same function: ``F.interpolate``, its
@@ -114,6 +127,26 @@ def _time_cold_ms(fn, args_list, iters=ITERS) -> float:
     whose total exceeds the L2 cache: each call reads device memory."""
     args = itertools.cycle(args_list)
     return _time_ms(lambda: fn(*next(args)), iters)
+
+
+def _device_ms(fn, args_list=((),), iters=ITERS) -> float:
+    """Device ms per call of ``fn(*args)`` cycling through ``args_list``:
+    CUDA events around ``iters`` calls queued behind a kernel that spins
+    ~10 ms, so that the device runs them back to back and no host time
+    between calls counts (``torch.profiler`` dropped kernels of some of
+    many short traces on the card)."""
+    args = itertools.cycle(args_list)
+    for _ in range(WARMUP):
+        fn(*next(args))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)  # cycles
+    start.record()
+    for _ in range(iters):
+        fn(*next(args))
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -169,8 +202,8 @@ def check_kernels(dev, gen):
               ((8, 32, 32, 64), 4), ((8, 16, 16, 64), 8),
               ((8, 64, 64, 128), 2), ((8, 32, 32, 128), 4),
               ((8, 16, 16, 128), 8)]
-    ui = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
-          "bytes": 0.0, "flops": 0.0}
+    ui = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+          "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0}
     for shape, f in shapes:
         x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
         got, want = upsample_int(x, f), upsample_int_reference(x, f)
@@ -179,13 +212,15 @@ def check_kernels(dev, gen):
         _require(_bf16_ulp_ok(got, want),
                  f"upsample_int {shape} x{f}: beyond 1 bf16 ulp (max {err})")
         ms = _time_ms(lambda: upsample_int(x, f))
+        dev_ms = _device_ms(lambda: upsample_int(x, f))
         plain = _time_ms(lambda: upsample_int_reference(x, f))
         lib = _time_ms(lambda: F.interpolate(
             _nchw(x), scale_factor=f, mode="bilinear", align_corners=False))
         print(f"upsample_int {shape} x{f}: max_abs_err {err:.3e} "
-              f"(<= 1 bf16 ulp), kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"F.interpolate {lib:.4f} ms")
+              f"(<= 1 bf16 ulp), kernel {ms:.4f} ms ({dev_ms:.4f} device), "
+              f"plain {plain:.4f} ms, F.interpolate {lib:.4f} ms")
         ui["ms"] += ms
+        ui["device_ms"] += dev_ms
         ui["plain_ms"] += plain
         ui["library_ms"] += lib
         ui["max_abs_err"] = max(ui["max_abs_err"], err)
@@ -204,12 +239,13 @@ def check_kernels(dev, gen):
         _require(got.dtype == torch.float32 and err <= 1e-5,
                  f"upsample_sigmoid {dtype}: max_abs_err {err} > 1e-5")
         ms = _time_ms(lambda: upsample_sigmoid(x, (512, 512)))
+        dev_ms = _device_ms(lambda: upsample_sigmoid(x, (512, 512)))
         plain = _time_ms(lambda: upsample_sigmoid_reference(x, (512, 512)))
         print(f"upsample_sigmoid (8, 20, 128, 128) {dtype} -> 512^2 f32: "
-              f"max_abs_err {err:.3e} (<= 1e-5), kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms")
+              f"max_abs_err {err:.3e} (<= 1e-5), kernel {ms:.4f} ms "
+              f"({dev_ms:.4f} device), plain {plain:.4f} ms")
         # the path's dtype (bf16, last) gives the recorded times
-        us.update(ms=ms, plain_ms=plain,
+        us.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                   max_abs_err=max(err, us["max_abs_err"]),
                   bytes=x.numel() * x.element_size() + 4 * got.numel(),
                   flops=12 * got.numel())  # 7 for the taps, ~5 the sigmoid
@@ -239,8 +275,8 @@ def check_training_kernels(dev, gen):
     )
     from basi_tpu_torch.ops.resize import _resize_einsum, resize_bilinear
 
-    ub = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
-          "bytes": 0.0, "flops": 0.0}
+    ub = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+          "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0}
     for (n, h, w, c), f in TRAIN_RESIZES:
         g = torch.randn((n, f * h, f * w, c), generator=gen).to(dev, torch.bfloat16)
         got = upsample_int_backward(g, f)
@@ -251,13 +287,16 @@ def check_training_kernels(dev, gen):
                  f"upsample_int_bwd {(n, h, w, c)} x{f}: beyond 1 bf16 ulp "
                  f"+ 2^-20 of the largest (max {err})")
         ms = _time_ms(lambda: upsample_int_backward(g, f))
+        dev_ms = _device_ms(lambda: upsample_int_backward(g, f))
         plain = _time_ms(lambda: upsample_int_backward_reference(g, f))
         lib = _time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
             _nchw(g), [f * h, f * w], [n, c, h, w], False))
         print(f"upsample_int_bwd {(n, h, w, c)} x{f}: max_abs_err {err:.3e} "
-              f"(<= 1 bf16 ulp + 2^-20 max), kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, upsample_bilinear2d_backward {lib:.4f} ms")
+              f"(<= 1 bf16 ulp + 2^-20 max), kernel {ms:.4f} ms "
+              f"({dev_ms:.4f} device), plain {plain:.4f} ms, "
+              f"upsample_bilinear2d_backward {lib:.4f} ms")
         ub["ms"] += ms
+        ub["device_ms"] += dev_ms
         ub["plain_ms"] += plain
         ub["library_ms"] += lib
         ub["max_abs_err"] = max(ub["max_abs_err"], err)
@@ -289,13 +328,15 @@ def check_training_kernels(dev, gen):
         _require(got.dtype == dtype and torch.equal(got, want),
                  f"normalize_and_flip {dtype}: not bit-exact (max {err})")
         ms = _time_ms(lambda: normalize_and_flip(imgs, flip, out_dtype=dtype))
+        dev_ms = _device_ms(lambda: normalize_and_flip(imgs, flip,
+                                                          out_dtype=dtype))
         plain = _time_ms(lambda: normalize_and_flip_reference(
             imgs, flip, out_dtype=dtype))
         print(f"normalize_and_flip (16, 512, 512, 3) u8 -> {dtype}, mixed "
-              f"flags: max_abs_err {err:.3e} (bit-exact), kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms")
+              f"flags: max_abs_err {err:.3e} (bit-exact), kernel {ms:.4f} ms "
+              f"({dev_ms:.4f} device), plain {plain:.4f} ms")
         # the path's dtype (bf16, last) gives the recorded times
-        nf.update(ms=ms, plain_ms=plain, max_abs_err=max(err, nf["max_abs_err"]),
+        nf.update(ms=ms, device_ms=dev_ms, plain_ms=plain, max_abs_err=max(err, nf["max_abs_err"]),
                   bytes=imgs.numel() + got.numel() * got.element_size(),
                   flops=3 * got.numel())
     return ub, nf
@@ -336,15 +377,31 @@ def _bn_stats_library(g, x, zero, one):
         _nchw(g), _nchw(x), zero, one, None, True, False, False)[:2]
 
 
+def _terms_err(got, want) -> float:
+    """The largest difference of a term from its plain counterpart, over
+    the largest magnitude of that term's plain row."""
+    return max(float((g.double() - w.double()).abs().max())
+               / max(float(w.double().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+# BN entry points: the two sums, then the epilogues (means and BN forward
+# on the channel_moments kernel, BN backward on channel_dual_sums)
+BN_ENTRIES = ("channel_moments", "channel_dual_sums", "channel_means",
+              "bn_forward_terms", "bn_backward_terms")
+
+
 def check_bn_kernels(dev, gen):
     """Phase 2, fused BatchNorm: channel_moments and channel_dual_sums at
-    the 12 BN shapes of a ResNet-50 step (bf16) and two in f32; returns the
-    per-step records (53 calls each)."""
+    the 12 BN shapes of a ResNet-50 step (bf16) and two in f32, the sums and
+    the three BN epilogues; returns the per-step records (53 calls each)
+    of the two sums, with the epilogues' totals printed."""
     from basi_tpu_torch.kernels import bn_stats as B
+    from basi_tpu_torch.models import norm as BN
 
-    recs = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0}
-            for k in ("channel_moments", "channel_dual_sums")}
+    recs = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "max_abs_err": 0.0, "bytes": 0.0,
+                "flops": 0.0} for k in BN_ENTRIES}
     cases = [((hw, c), n, torch.bfloat16) for (hw, c), n in BN_SHAPES]
     cases += [(s, 0, torch.float32) for s in BN_F32_SHAPES]
     for (hw, c), layers, dtype in cases:
@@ -352,9 +409,12 @@ def check_bn_kernels(dev, gen):
         gs = _activations(gen, dev, hw, c, dtype)
         zero = torch.zeros(c, device=dev)
         one = torch.ones(c, device=dev)
+        scale = torch.linspace(0.5, 1.5, c, device=dev)
+        bias = torch.linspace(-1.0, 1.0, c, device=dev)
+        m = BN_BATCH * hw
         xf, gf = xs[0].float(), gs[0].float()
         nbytes = xs[0].numel() * xs[0].element_size()
-        runs = {
+        sums = {
             "channel_moments": (
                 B.channel_moments, B.channel_moments_reference,
                 [(x,) for x in xs],
@@ -369,11 +429,14 @@ def check_bn_kernels(dev, gen):
                 (gf.abs().sum((0, 1, 2)), (gf * xf).abs().sum((0, 1, 2))),
                 2 * nbytes + 8 * c)}
         del xf, gf
+        flops = 3 * xs[0].numel()  # add; multiply, add
+        got_sums = {}
         for name, (fn, plain_fn, args, lib_fn, lib_args, absum,
-                   io_bytes) in runs.items():
+                   io_bytes) in sums.items():
             got, again = fn(*args[0]), fn(*args[0])
             want = plain_fn(*args[0])
             torch.cuda.synchronize()
+            got_sums[name] = got
             err = max(float((a - b).abs().max()) for a, b in zip(got, want))
             what = f"{name} ({BN_BATCH}x{hw}, {c}) {dtype}"
             _require(_sums_ok(got, want, absum),
@@ -385,30 +448,225 @@ def check_bn_kernels(dev, gen):
                          f"{what}: batch_norm_backward_reduce does not give "
                          "(sum g, sum g*x)")
             ms = _time_cold_ms(fn, args)
+            dev_ms = _device_ms(fn, args)
             plain = _time_cold_ms(plain_fn, args)
             lib = _time_cold_ms(lib_fn, lib_args)
-            flops = 3 * xs[0].numel()  # add; multiply, add
             bound, _ = _bound(io_bytes, flops)
             print(f"{what}: max_abs_err {err:.3e} (<= 1e-5 sum|term|, "
-                  f"repeats bit for bit), kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, library {lib:.4f} ms, bound "
-                  f"{bound:.4f} ms")
+                  f"repeats bit for bit), kernel {ms:.4f} ms ({dev_ms:.4f} "
+                  f"device), plain {plain:.4f} ms, "
+                  f"library {lib:.4f} ms, bound {bound:.4f} ms")
             r = recs[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if layers:  # one step: each layer of this shape calls once
-                r["ms"] += layers * ms
-                r["plain_ms"] += layers * plain
-                r["library_ms"] += layers * lib
-                r["bytes"] += layers * io_bytes
-                r["flops"] += layers * flops
-        del xs, gs, runs
+                for k, v in (("ms", ms), ("device_ms", dev_ms),
+                             ("plain_ms", plain), ("library_ms", lib),
+                             ("bytes", io_bytes), ("flops", flops)):
+                    r[k] += layers * v
+
+        # the epilogues, against the plain math on the kernel's own sums
+        (sx, sx2), (sg, sgx) = (got_sums["channel_moments"],
+                                got_sums["channel_dual_sums"])
+        want_fwd = B.bn_forward_math(sx / m, sx2 / m, scale, bias, 1e-5)
+        mean, inv = want_fwd[0], want_fwd[2]
+        terms = {
+            "channel_means": (B.channel_means, B.channel_means_reference,
+                              [(x,) for x in xs], (sx / m, sx2 / m),
+                              nbytes + 8 * c),
+            "bn_forward_terms": (
+                B.bn_forward_terms, B.bn_forward_terms_reference,
+                [(x, scale, bias, 1e-5) for x in xs], want_fwd,
+                nbytes + 28 * c),
+            "bn_backward_terms": (
+                B.bn_backward_terms, B.bn_backward_terms_reference,
+                [(g, x, scale, mean, inv) for g, x in zip(gs, xs)],
+                B.bn_backward_math(sg, sgx, m, scale, mean, inv),
+                2 * nbytes + 32 * c)}
+        got_terms, line = {}, []
+        for name, (fn, plain_fn, args, want, io_bytes) in terms.items():
+            got, again = fn(*args[0]), fn(*args[0])
+            torch.cuda.synchronize()
+            got_terms[name] = got
+            err = _terms_err(got, want)
+            what = f"{name} ({BN_BATCH}x{hw}, {c}) {dtype}"
+            _require(err <= 1e-5, f"{what}: a term beyond 1e-5 of its largest "
+                     f"magnitude ({err:.3e})")
+            _require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                     f"{what}: two launches differ")
+            ms = _time_cold_ms(fn, args)
+            dev_ms = _device_ms(fn, args)
+            plain = _time_cold_ms(plain_fn, args)
+            line.append(f"{name} {ms:.4f} ms ({dev_ms:.4f} device, plain "
+                        f"{plain:.4f}, terms within {err:.1e})")
+            r = recs[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if layers:
+                for k, v in (("ms", ms), ("device_ms", dev_ms),
+                             ("plain_ms", plain), ("bytes", io_bytes),
+                             ("flops", flops)):
+                    r[k] += layers * v
+        # the module's elementwise passes on them
+        xn, gn = _nchw(xs[0]), _nchw(gs[0])
+        fwd, bwd = got_terms["bn_forward_terms"], got_terms["bn_backward_terms"]
+        want_bwd = terms["bn_backward_terms"][3]
+        _require(_bf16_ulp_ok(BN._apply(xn, *fwd[3:]),
+                              BN._apply(xn, *want_fwd[3:])),
+                 f"({BN_BATCH}x{hw}, {c}) {dtype}: y beyond 1 bf16 ulp")
+        _require(_bf16_sum_ok(BN._input_gradient(gn, xn, mean, *bwd[2:]),
+                              BN._input_gradient(gn, xn, mean, *want_bwd[2:])),
+                 f"({BN_BATCH}x{hw}, {c}) {dtype}: dx beyond 1 bf16 ulp + "
+                 "2^-20 of the largest")
+        print(f"epilogues ({BN_BATCH}x{hw}, {c}) {dtype}: {'; '.join(line)}; "
+              "y within 1 bf16 ulp, dx within 1 bf16 ulp + 2^-20 max, "
+              "repeat bit for bit")
+        del xs, gs, sums, terms, got_terms, fwd, bwd, xn, gn
         torch.cuda.empty_cache()
     for name, r in recs.items():
-        print(f"{name}, one step's 53 calls (bf16): kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-              f"ms, bound {_bound(r['bytes'], r['flops'])[0]:.4f} ms "
+        lib = (f", library {r['library_ms']:.4f} ms" if name in got_sums
+               else "")
+        print(f"{name}, one step's 53 calls (bf16): kernel {r['ms']:.4f} ms "
+              f"({r['device_ms']:.4f} device), plain {r['plain_ms']:.4f} ms"
+              f"{lib}, bound {_bound(r['bytes'], r['flops'])[0]:.4f} ms "
               f"({r['bytes'] / 1e9:.3f} GB)")
+    for name, lib in (("channel_moments", "torch.batch_norm_stats"),
+                      ("channel_dual_sums", "torch.batch_norm_backward_reduce")):
+        r = recs[name]
+        print(f"{name} against {lib}, 53 calls by events: {r['ms']:.4f} "
+              f"against {r['library_ms']:.4f} ms "
+              f"({'faster' if r['ms'] < r['library_ms'] else 'not faster'})")
     return recs["channel_moments"], recs["channel_dual_sums"]
+
+
+# the sweep's variants of csrc/bn_stats.cu: (name, text replaced, by what)
+BN_VARIANTS = [
+    ("16 loads in flight", "constexpr int kDepth = 8;",
+     "constexpr int kDepth = 16;"),
+    ("no last block (stream and partials only)",
+     "  // 3. the last block of each group",
+     "  if (p.eps >= 0.0f) return;\n  // 3. the last block of each group"),
+    ("launch only", "  // 1. the slab's rows",
+     "  if (p.eps >= 0.0f) return;\n  // 1. the slab's rows"),
+]
+
+
+def _bn_variant_libs():
+    """The variants of ``BN_VARIANTS``, each built (one ``nvcc`` each, all
+    at once) into its own library under ``build/bn_variants/``."""
+    import ctypes
+
+    from basi_tpu_torch.kernels import _build
+
+    src = (_build.CSRC / "bn_stats.cu").read_text()
+    out = _build.BUILD_ROOT.parent / "bn_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for i, (name, old, new) in enumerate(BN_VARIANTS):
+        _require(old in src, f"bn sweep: {name!r} finds no {old!r}")
+        cu, so = out / f"v{i}.cu", out / f"v{i}.so"
+        cu.write_text(src.replace(old, new))
+        jobs.append((name, so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    libs = {}
+    for name, so, proc in jobs:
+        log, _ = proc.communicate()
+        _require(proc.returncode == 0, f"bn sweep: {name!r} did not build\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for entry in ("basi_channel_moments_bf16", "basi_channel_dual_sums_bf16",
+                      "basi_bn_stats_blocks_per_sm"):
+            getattr(lib, entry).argtypes = list(_build.SIGNATURES[entry])
+        libs[name] = lib
+    return libs
+
+
+def sweep_bn_layout(dev, gen) -> None:
+    """Phase 2, last: the BN kernels' device time (``_device_ms``, sums
+    epilogue, bf16) at the step's 12 shapes and over its 53 calls: as
+    built; built with the variants of ``BN_VARIANTS``, each on the grid of
+    its own occupancy; and as built on grids of 2 to 5 blocks per SM (the
+    default takes as many as an SM holds). Then the host's time to enqueue
+    one call of each BN entry point and of the library calls."""
+    import ctypes
+
+    from basi_tpu_torch.kernels import bn_stats as B
+
+    libs = _bn_variant_libs()
+    built = B._build.library()
+    entry = {"moments": "basi_channel_moments_bf16",
+             "dual": "basi_channel_dual_sums_bf16"}
+    totals: dict = {}
+    for (hw, c), layers in BN_SHAPES:
+        xs = _activations(gen, dev, hw, c, torch.bfloat16, loc=0.5)
+        gs = _activations(gen, dev, hw, c, torch.bfloat16)
+        inputs = {"moments": [(x, x) for x in xs], "dual": list(zip(gs, xs))}
+        nbytes = xs[0].numel() * xs[0].element_size()
+        rows = BN_BATCH * hw
+        out = torch.empty((2, c), device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        line = []
+
+        def device_ms(lib, kind, per_sm):
+            """The sums of ``lib``'s kernel on a grid of ``per_sm`` blocks
+            per SM (None: as many as ``lib``'s kernel lets an SM hold)."""
+            if per_sm is None:
+                held = ctypes.c_int(0)
+                B._build.check(lib.basi_bn_stats_blocks_per_sm(
+                    kind == "dual", 0, ctypes.byref(held)), "bn sweep")
+                per_sm = held.value
+            _, g, parts, slab, size, count = B._plan(kind, xs[0], rows, c,
+                                                     per_sm)
+            ws, counters = B._workspace(xs[0].device, stream, size, count)
+            fn = getattr(lib, entry[kind])
+
+            def call(a, b):
+                B._build.check(fn(
+                    a.data_ptr(), b.data_ptr(), ws.data_ptr(),
+                    counters.data_ptr(), out.data_ptr(), None, None, None,
+                    None, rows, c, g, parts, slab, 0, 0.0, stream),
+                    "bn sweep")
+            return _device_ms(call, inputs[kind])
+
+        runs = [(f"{per_sm or 'held'} blocks per SM", built, per_sm)
+                for per_sm in (None, 2, 3, 4, 5)]
+        runs += [(name, lib, None) for name, lib in libs.items()]
+        for name, lib, per_sm in runs:
+            dm, dd = (device_ms(lib, kind, per_sm) for kind in inputs)
+            t = totals.setdefault(name, [0.0, 0.0])
+            t[0] += layers * dm
+            t[1] += layers * dd
+            line.append(f"{name}: moments {dm * 1e3:.1f} us "
+                        f"({nbytes / dm / 1e9:.2f} TB/s), dual sums "
+                        f"{dd * 1e3:.1f} us ({2 * nbytes / dd / 1e9:.2f} TB/s)")
+        print(f"bn sweep ({BN_BATCH}x{hw}, {c}) bf16: " + "; ".join(line))
+        del xs, gs, inputs
+        torch.cuda.empty_cache()
+    for name, (dm, dd) in totals.items():
+        print(f"bn sweep, one step's 53 calls, {name}: moments {dm:.4f} ms, "
+              f"dual sums {dd:.4f} ms (device)")
+    x = _activations(gen, dev, 256, 512, torch.bfloat16, loc=0.5)[0]
+    g = torch.randn(x.shape, generator=gen).to(dev, torch.bfloat16)
+    scale, zero, one = (torch.full((512,), v, device=dev) for v in (1.0, 0.0, 1.0))
+    calls = {"channel_moments": lambda: B.channel_moments(x),
+             "bn_forward_terms": lambda: B.bn_forward_terms(x, scale, zero, 1e-5),
+             "channel_dual_sums": lambda: B.channel_dual_sums(g, x),
+             "bn_backward_terms": lambda: B.bn_backward_terms(
+                 g, x, scale, zero, one),
+             "torch.batch_norm_stats": lambda: torch.batch_norm_stats(
+                 _nchw(x), 1e-5),
+             "torch.batch_norm_backward_reduce": lambda: _bn_stats_library(
+                 g, x, zero, one)}
+    for name, fn in calls.items():
+        for _ in range(WARMUP):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        print(f"host time to enqueue one {name} call ({BN_BATCH}x256, 512): "
+              f"{host:.1f} us")
 
 
 def smoke_weights(cfg, gen):
@@ -930,6 +1188,7 @@ def main() -> int:
     ui, us = check_kernels(dev, gen)
     ub, nf = check_training_kernels(dev, gen)
     cm, cds = check_bn_kernels(dev, gen)
+    sweep_bn_layout(dev, gen)
 
     cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"])
     sd = smoke_weights(cfg, gen)
@@ -969,6 +1228,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "device_ms": r["device_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": bound,
                         "bound_by": by, "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,14 @@ the JAX side and NCHW in ``channels_last`` memory on the port's. Tolerances:
   (running mean ``atol=1e-6``);
 * the gradients of x, scale and bias through ``sum(tanh(y) * w)``:
   ``rtol=3e-4, atol=3e-5``;
-* eval mode: bitwise equal to ``bn_impl="xla"``; ``gradcheck`` in float64.
+* eval mode: bitwise equal to ``bn_impl="xla"``; ``gradcheck`` in float64;
+* the BatchNorm's per-channel terms (the kernels' epilogues, whose plain
+  versions run here) against ``_bn_fwd_math``, ``batch_moments`` and
+  ``_bn_bwd``: in f32 ``rtol=atol=2e-5`` (means, var, inv, a, b) and
+  ``rtol=3e-4, atol=1e-4`` (dscale, dbias, dx: sums of up to 512 terms
+  that cancel); in float64 ``1e-10``, both sides in float64 (the JAX
+  functions read ``jnp.float32`` as float64 for the test, as in
+  ``test_torch_train.py``).
 
 Both sides take the one-pass variance E[x^2] - E[x]^2 that the TPU kernel
 feeds. In f32 it cancels where a channel's mean dwarfs its spread, and the
@@ -32,6 +39,7 @@ import pytest
 import torch
 
 from basi_tpu.models.basi import create_model as jax_create_model
+from basi_tpu.models import norm as jax_norm
 from basi_tpu.models.norm import FusedBatchNorm as JaxFusedBatchNorm
 from basi_tpu.ops.pallas import bn_stats as jax_bn
 from basi_tpu_torch.convert import load_jax_variables, to_jax_variables
@@ -42,6 +50,7 @@ from basi_tpu_torch.models.layers import BatchNorm2d, update_running_stats
 
 from helpers import tiny_config
 from test_torch_model import jax_variables
+from test_torch_train import _Float32As64
 
 # (N, H, W, C); rows = N*H*W = 15 in the last does not block in JAX
 SHAPES = [(2, 16, 16, 128), (2, 8, 8, 16), (1, 3, 5, 24)]
@@ -99,9 +108,88 @@ def test_bn_stats_plain_takes_the_channels_last_view_and_checks_shapes():
     with pytest.raises(ValueError, match="does not match"):
         K.channel_dual_sums(torch.zeros(1, 2, 2, 8),
                             torch.zeros(1, 2, 2, 8, dtype=torch.float64))
-    assert K.launch_layout(16 * 65536, 64, 132) == (8, 528)
-    assert K.launch_layout(16 * 256, 2048, 132) == (32, 64)
-    assert K.launch_layout(15, 24, 132) == (2, 1)
+    # (groups per block, slabs, rows per slab) for at most 660 blocks (132
+    # SMs x 5): never more, so no block waits for a free SM
+    assert K.launch_layout(16 * 65536, 64, 2, 660) == (8, 660, 1589)
+    assert K.launch_layout(16 * 4096, 512, 2, 396) == (8, 49, 1338)
+    assert K.launch_layout(16 * 256, 2048, 2, 660) == (8, 16, 256)
+    assert K.launch_layout(15, 24, 4, 660) == (4, 1, 15)
+
+
+# --- the BatchNorm's per-channel terms -------------------------------------------
+
+TERM_TOL = {"float32": (dict(rtol=2e-5, atol=2e-5), dict(rtol=3e-4, atol=1e-4)),
+            "float64": (dict(rtol=1e-10, atol=1e-10),) * 2}
+
+
+def _terms_case(shape, dtype: str, monkeypatch):
+    """x (mean 1, spread 3), g, scale and bias as numpy arrays of ``dtype``;
+    in float64 the JAX BN functions compute in float64."""
+    if dtype == "float64":
+        monkeypatch.setattr(jax_norm, "jnp", _Float32As64())
+        monkeypatch.setattr(jax_bn, "jnp", _Float32As64())
+    rng = np.random.RandomState(8)
+    c = shape[-1]
+    return [a.astype(dtype) for a in (
+        rng.randn(*shape) * 3 + 1, rng.randn(*shape), rng.rand(c) + 0.5,
+        rng.randn(c))]
+
+
+def _close_terms(got, want, tol, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bn_forward_terms_plain_matches_jax(shape, dtype, monkeypatch):
+    x, _, scale, bias = _terms_case(shape, dtype, monkeypatch)
+    with jax.enable_x64(dtype == "float64"):
+        sj = jnp.asarray(scale)
+        _, mean, var, inv = jax_norm._bn_fwd_math(
+            jnp.asarray(x), sj, jnp.asarray(bias), None, 1e-5)
+        a = sj * inv
+        want = (mean, var, inv, a, jnp.asarray(bias) - mean * a)
+    n0 = K.channel_moments.launches
+    got = K.bn_forward_terms(torch.from_numpy(x), torch.from_numpy(scale),
+                             torch.from_numpy(bias), 1e-5)
+    assert K.channel_moments.launches == n0  # the CPU runs no kernel
+    _close_terms(got, want, TERM_TOL[dtype][0], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_channel_means_plain_matches_jax(shape, dtype, monkeypatch):
+    x = _terms_case(shape, dtype, monkeypatch)[0]
+    with jax.enable_x64(dtype == "float64"):
+        want = jax_norm.batch_moments(jnp.asarray(x))
+    _close_terms(K.channel_means(torch.from_numpy(x)), want,
+                 TERM_TOL[dtype][0], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bn_backward_terms_plain_matches_jax(shape, dtype, monkeypatch):
+    """dscale and dbias from the terms, and dx from them through the
+    module's elementwise pass, against ``_bn_bwd``."""
+    x, gy, scale, bias = _terms_case(shape, dtype, monkeypatch)
+    with jax.enable_x64(dtype == "float64"):
+        xj, sj = jnp.asarray(x), jnp.asarray(scale)
+        _, mean, _, inv = jax_norm._bn_fwd_math(xj, sj, jnp.asarray(bias),
+                                                None, 1e-5)
+        dx_j, dscale_j, dbias_j = jax_norm._bn_bwd(
+            None, 1e-5, (xj, sj, mean, inv), (jnp.asarray(gy), None, None))
+    mean, inv = (torch.from_numpy(np.array(v)) for v in (mean, inv))
+    x_t, gy_t = torch.from_numpy(x), torch.from_numpy(gy)
+    n0 = K.channel_dual_sums.launches
+    dscale, dbias, a, a_mg, a_inv_mgxn = K.bn_backward_terms(
+        gy_t, x_t, torch.from_numpy(scale), mean, inv)
+    assert K.channel_dual_sums.launches == n0
+    dx = N._input_gradient(gy_t.permute(0, 3, 1, 2), x_t.permute(0, 3, 1, 2),
+                           mean, a, a_mg, a_inv_mgxn).permute(0, 2, 3, 1)
+    _close_terms((dscale, dbias, dx), (dscale_j, dbias_j, dx_j),
+                 TERM_TOL[dtype][1], dtype)
 
 
 # --- the module ------------------------------------------------------------------

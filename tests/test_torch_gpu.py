@@ -16,9 +16,11 @@ small result); ``upsample_sigmoid`` ``atol=1e-5`` on f32 probabilities;
 order, no FMA, one rounding); ``channel_moments`` and ``channel_dual_sums``
 within ``1e-5 * sum |term|`` per channel of the plain version (f32 sums of
 up to a million terms taken in another order) and bit-equal from one launch
-to the next (no atomics); ``FusedBatchNorm`` on the card within 1e-4 of the
-same module on the CPU. TF32 is off, so the plain versions' f32 matmuls run
-in full f32.
+to the next (an atomic ticket only elects the block that sums the partials,
+in a fixed order); their BatchNorm epilogues within 1e-5 of each term's
+largest magnitude of the plain math on the same sums; ``FusedBatchNorm`` on
+the card within 1e-4 of the same module on the CPU. TF32 is off, so the
+plain versions' f32 matmuls run in full f32.
 """
 
 import numpy as np
@@ -278,6 +280,146 @@ def test_gpu_channel_dual_sums_kernel_matches_plain(rng, shape, dtype):
                       f"{shape}")
 
 
+# (N, H, W, C) of ResNet-50's 12 BatchNorm shapes at batch 16 and 512^2
+# (bf16), then ragged ones: odd row counts, C = 1, 3 and 2050 (scalar loads).
+BN_RESNET50 = [(16, 256, 256, 64), (16, 128, 128, 64), (16, 128, 128, 256),
+               (16, 128, 128, 128), (16, 64, 64, 128), (16, 64, 64, 512),
+               (16, 64, 64, 256), (16, 32, 32, 256), (16, 32, 32, 1024),
+               (16, 32, 32, 512), (16, 16, 16, 512), (16, 16, 16, 2048)]
+BN_TERM_CASES = [(s, torch.bfloat16) for s in BN_RESNET50] + [
+    ((3, 7, 5, 1), torch.float32), ((1, 9, 13, 3), torch.bfloat16),
+    ((2, 5, 7, 2050), torch.float32), ((1, 3, 11, 2050), torch.bfloat16),
+    ((5, 3, 3, 64), torch.float32)]
+
+
+def assert_terms_close(got, want, msg=""):
+    """Each (C,) row within 1e-5 of the largest magnitude of its plain
+    counterpart (one-ulp differences of a division, an rsqrt taken in
+    another kernel)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = float((g.double() - w.double()).abs().max())
+        assert err <= 1e-5 * float(w.double().abs().max()), (
+            f"{msg}: term {i} off by {err}")
+
+
+def _bn_params(c, dev):
+    return (torch.linspace(0.5, 1.5, c, device=dev),
+            torch.linspace(-1.0, 1.0, c, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", BN_TERM_CASES)
+def test_gpu_bn_term_epilogues_match_plain(rng, shape, dtype):
+    """``channel_means``, ``bn_forward_terms`` and ``bn_backward_terms``
+    (the kernels with the BN's per-channel math in their last block)
+    against the plain math on the kernel's own sums; their sums against the
+    plain version; two launches bit for bit equal; and the module's
+    elementwise passes on them: y within 1 bf16 ulp, dx within 1 bf16 ulp
+    plus 2^-20 of its largest magnitude (its three terms cancel)."""
+    from basi_tpu_torch.models import norm as BN
+
+    dev = _cuda()
+    x = _nhwc(rng, shape, dtype, dev, loc=0.5)
+    g = _nhwc(rng, shape, dtype, dev)
+    scale, bias = _bn_params(shape[-1], dev)
+    m = shape[0] * shape[1] * shape[2]
+    n0 = (B.channel_moments.launches, B.channel_dual_sums.launches)
+    sx, sx2 = B.channel_moments(x)
+    means = B.channel_means(x)
+    fwd = B.bn_forward_terms(x, scale, bias, 1e-5)
+    fwd2 = B.bn_forward_terms(x, scale, bias, 1e-5)
+    mean, inv = fwd[0], fwd[2]
+    sg, sgx = B.channel_dual_sums(g, x)
+    bwd = B.bn_backward_terms(g, x, scale, mean, inv)
+    bwd2 = B.bn_backward_terms(g, x, scale, mean, inv)
+    torch.cuda.synchronize()
+    assert (B.channel_moments.launches - n0[0],
+            B.channel_dual_sums.launches - n0[1]) == (4, 3)
+    for a, b in zip(fwd + bwd, fwd2 + bwd2):
+        assert torch.equal(a, b), "two launches differ"
+    plain_fwd = B.bn_forward_math(sx / m, sx2 / m, scale, bias, 1e-5)
+    plain_bwd = B.bn_backward_math(sg, sgx, m, scale, mean, inv)
+    assert_terms_close(means, (sx / m, sx2 / m), f"means {shape}")
+    assert_terms_close(fwd, plain_fwd, f"forward {shape}")
+    assert_terms_close(bwd, plain_bwd, f"backward {shape}")
+    xf, gf = x.float(), g.float()
+    assert_sums_close((sx, sx2), B.channel_moments_reference(x),
+                      (xf.abs().sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))),
+                      f"{shape}")
+    assert_sums_close((sg, sgx), B.channel_dual_sums_reference(g, x),
+                      (gf.abs().sum((0, 1, 2)),
+                       (gf * xf).abs().sum((0, 1, 2))), f"{shape}")
+    xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    assert_within_bf16_ulp(BN._apply(xn, *fwd[3:]), BN._apply(xn, *plain_fwd[3:]),
+                           f"y {shape}")
+    assert_within_bf16_sum(BN._input_gradient(gn, xn, mean, *bwd[2:]),
+                           BN._input_gradient(gn, xn, mean, *plain_bwd[2:]),
+                           f"dx {shape}")
+
+
+@pytest.mark.gpu
+def test_gpu_bn_kernels_interleaved_calls_each_right(rng):
+    """100 calls of both kernels, their epilogues in turn, at shapes that
+    alternate (another tile count, dtype and slab count each time): every
+    result equals the first call's bit for bit, so no counter is left
+    behind by a launch and no workspace is read stale."""
+    dev = _cuda()
+    shapes = [((16, 32, 32, 256), torch.bfloat16), ((3, 7, 5, 24), torch.bfloat16),
+              ((2, 9, 11, 12), torch.float32), ((4, 16, 16, 2048), torch.bfloat16),
+              ((1, 3, 5, 2050), torch.float32)]
+    cases = []
+    for shape, dtype in shapes:
+        x = _nhwc(rng, shape, dtype, dev, loc=0.5)
+        g = _nhwc(rng, shape, dtype, dev)
+        scale, bias = _bn_params(shape[-1], dev)
+        mean, _, inv, _, _ = B.bn_forward_terms(x, scale, bias, 1e-5)
+        calls = [lambda x=x: B.channel_moments(x),
+                 lambda x=x: B.channel_means(x),
+                 lambda x=x, s=scale, b=bias: B.bn_forward_terms(x, s, b, 1e-5),
+                 lambda g=g, x=x: B.channel_dual_sums(g, x),
+                 lambda g=g, x=x, s=scale, mu=mean, i=inv:
+                     B.bn_backward_terms(g, x, s, mu, i)]
+        cases.append([(fn, [t.clone() for t in fn()]) for fn in calls])
+    for i in range(100):
+        fn, want = cases[i % len(cases)][i % 5]
+        got = fn()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+            f"call {i}: {shapes[i % len(cases)]} epilogue {i % 5} differs")
+
+
+@pytest.mark.gpu
+def test_gpu_bn_kernels_launch_one_device_kernel_per_call(rng):
+    """``torch.profiler``: five calls of each entry point run five device
+    kernels, all ``bn_stats`` ones (no second pass, no fill, no copy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _cuda()
+    x = _nhwc(rng, (16, 64, 64, 256), torch.bfloat16, dev, loc=0.5)
+    g = _nhwc(rng, (16, 64, 64, 256), torch.bfloat16, dev)
+    scale, bias = _bn_params(256, dev)
+    mean, _, inv, _, _ = B.bn_forward_terms(x, scale, bias, 1e-5)
+    calls = {"channel_moments": lambda: B.channel_moments(x),
+             "channel_means": lambda: B.channel_means(x),
+             "bn_forward_terms": lambda: B.bn_forward_terms(x, scale, bias, 1e-5),
+             "channel_dual_sums": lambda: B.channel_dual_sums(g, x),
+             "bn_backward_terms": lambda: B.bn_backward_terms(
+                 g, x, scale, mean, inv)}
+    for name, fn in calls.items():
+        fn()  # plans and workspaces exist before the profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 5 and all("bn_stats" in k for k in kernels), (
+            name, kernels)
+
+
 @pytest.mark.gpu
 def test_gpu_bn_stats_refuse_what_the_kernel_cannot_take():
     dev = _cuda()
@@ -290,6 +432,11 @@ def test_gpu_bn_stats_refuse_what_the_kernel_cannot_take():
         B.channel_moments(x.half())
     with pytest.raises(ValueError, match="does not match"):
         B.channel_dual_sums(x.float(), x)
+    scale = torch.ones(16, device=dev)
+    with pytest.raises(ValueError, match="per-channel"):
+        B.bn_forward_terms(x, scale.double(), scale, 1e-5)
+    with pytest.raises(ValueError, match="per-channel"):
+        B.bn_backward_terms(x, x, scale, scale[:8], scale)
     n0 = B.channel_moments.launches
     empty = B.channel_moments(x[:0])
     assert B.channel_moments.launches == n0
