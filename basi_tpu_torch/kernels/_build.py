@@ -132,6 +132,21 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
+def stream(device) -> int:
+    """The raw handle of the current stream of CUDA ``device``, on which a
+    wrapper launches its kernel. ``torch.cuda.current_stream``'s Stream
+    object and a ``torch.cuda.device`` context cost microseconds a call;
+    this reads the handle only. The kernels launch on the thread's current
+    device, so a tensor on another device raises."""
+    import torch
+
+    if device.index != torch._C._cuda_getDevice():
+        raise ValueError(f"tensor on {device} but the current device is "
+                         f"cuda:{torch._C._cuda_getDevice()}: launch under "
+                         "torch.cuda.device")
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if err != 0:

@@ -156,9 +156,7 @@ def _launch(counted, kind: str, epilogue: int, what: str, ts, scale=None,
                              f"contiguous float32 ({c},) on {x.device}, got "
                              f"{p.dtype} {tuple(p.shape)} on {p.device}")
     fn, g, parts, slab, size, count = _plan(kind, x, rows, c)
-    # the raw handle of the current stream: torch.cuda.current_stream's
-    # Stream object costs microseconds a call
-    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    stream = _build.stream(x.device)
     ws, counters = _workspace(x.device, stream, size, count)
     out = torch.empty((_OUT_ROWS[epilogue], c), dtype=torch.float32,
                       device=x.device)

@@ -11,6 +11,7 @@ stem, so the JAX package's (N, H/2, W/2, 12) packed feed raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -27,6 +28,13 @@ def _affine(mean, std) -> tuple[np.ndarray, np.ndarray]:
     m = np.asarray(mean, np.float32)
     s = np.asarray(std, np.float32)
     return np.float32(1.0) / s, -m / s
+
+
+@functools.lru_cache(maxsize=16)
+def _affine_args(mean: tuple, std: tuple):
+    """``_affine`` as the kernel's two arguments, 3 host floats each; made
+    once per (mean, std)."""
+    return tuple((ctypes.c_float * 3)(*a.tolist()) for a in _affine(mean, std))
 
 
 def _check(images_u8: torch.Tensor, flip: torch.Tensor, out_dtype) -> None:
@@ -70,14 +78,9 @@ def normalize_and_flip(images_u8: torch.Tensor, flip: torch.Tensor,
     if y.numel() == 0:
         return y
     flags = flip.to(torch.int32).contiguous()
-    inv_std, neg_mean = _affine(mean, std)
-    lib = _build.library()
-    with torch.cuda.device(images_u8.device):
-        stream = torch.cuda.current_stream(images_u8.device).cuda_stream
-        err = getattr(lib, _ENTRY[out_dtype])(
-            images_u8.data_ptr(), flags.data_ptr(), y.data_ptr(), n, h, w,
-            (ctypes.c_float * 3)(*inv_std.tolist()),
-            (ctypes.c_float * 3)(*neg_mean.tolist()), stream)
+    err = getattr(_build.library(), _ENTRY[out_dtype])(
+        images_u8.data_ptr(), flags.data_ptr(), y.data_ptr(), n, h, w,
+        *_affine_args(tuple(mean), tuple(std)), _build.stream(images_u8.device))
     _build.check(err, "normalize_and_flip")
     normalize_and_flip.launches += 1
     return y

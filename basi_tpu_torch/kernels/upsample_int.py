@@ -44,11 +44,9 @@ def _launch(entry: str, x: torch.Tensor, out_shape, n: int, h: int, w: int,
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, entry)(x.data_ptr(), y.data_ptr(), n, h, w,
-                                  x.shape[-1], f, stream)
+    err = getattr(_build.library(), entry)(x.data_ptr(), y.data_ptr(), n, h,
+                                           w, x.shape[-1], f,
+                                           _build.stream(x.device))
     _build.check(err, what)
     return y
 

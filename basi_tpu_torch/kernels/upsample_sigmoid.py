@@ -44,11 +44,9 @@ def upsample_sigmoid(logits: torch.Tensor,
                          f"grid's {_GRID_MAX}")
     y = torch.empty((b, oh, ow), dtype=torch.float32, device=x.device)
     if b:
-        lib = _build.library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = getattr(lib, _ENTRY[x.dtype])(x.data_ptr(), y.data_ptr(),
-                                                b, h, w, oh, ow, stream)
+        err = getattr(_build.library(), _ENTRY[x.dtype])(
+            x.data_ptr(), y.data_ptr(), b, h, w, oh, ow,
+            _build.stream(x.device))
         _build.check(err, "upsample_sigmoid")
         upsample_sigmoid.launches += 1
     return y.reshape(*lead, oh, ow)

@@ -143,7 +143,7 @@ class BatchedPredictor:
                 for i, (_, slot, done) in enumerate(items):
                     slot[0] = Prediction(masks[i], scores[i])
                     done.set()
-            except Exception as e:  # propagate to the callers
+            except BaseException as e:  # propagate to the callers
                 for _, slot, done in items:
                     slot[0] = e
                     done.set()

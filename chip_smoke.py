@@ -9,12 +9,18 @@
 2. Holds each kernel against its plain PyTorch version on the card at every
    shape the serving and training paths give it, with times (CUDA events,
    after warm-up, and the kernels' device time, queued behind a spinning
-   kernel so that no host time counts):
+   kernel so that no host time counts), all cold: each input rotates
+   through copies larger than twice the L2 cache, and the plain version
+   and the library call read the same copies:
    ``upsample_int`` within 1 bf16 ulp and its backward
-   within 1 bf16 ulp plus 2^-20 of the largest value (cancelling f32 sums),
-   ``upsample_sigmoid`` within 1e-5, ``normalize_and_flip`` bit-exact (bf16
-   and f32 out, mixed flip flags), and ``torch.autograd.grad`` through
-   ``resize_bilinear`` on the kernel route against the plain route.
+   within 1 bf16 ulp plus 2^-20 of the largest value (cancelling f32 sums)
+   and bit for bit over two launches, ``upsample_sigmoid`` within 1e-5,
+   ``normalize_and_flip`` bit-exact (bf16 and f32 out, mixed flip flags),
+   and ``torch.autograd.grad`` through ``resize_bilinear`` on the kernel
+   route against the plain route. Then the backward's device time built
+   with the other tilings of ``BWD_VARIANTS`` (``sweep_bwd_tiles``), and
+   the host's time to enqueue one call of each of the four older wrappers
+   and to get the stream the old way and the new (``time_enqueue``).
    ``channel_moments`` and ``channel_dual_sums`` at the 12 (H*W, C) of
    ResNet-50's 53 BatchNorms at 512^2, batch 16, bf16, and at two shapes in
    f32: per channel within ``1e-5 * sum |term|`` of the plain version (f32
@@ -59,7 +65,10 @@
    xla; 10 steps a window, CUDA events), then ``torch.profiler`` traces 3
    more steps of each: device ms and launches per step by kernel class
    (``bn_stats (ours)``: one launch a BN call), and the device's busy
-   share (the profile's device ms over the event step time). Last, the model at batch 4 takes one
+   share (the profile's device ms over the event step time); one more
+   ``xla`` step counts the upsample_int backward calls that receive a
+   cotangent that is not NHWC-contiguous and times their copies
+   (``strided_cotangents``). Last, the model at batch 4 takes one
    forward and backward of the same batch in f32 on the card (TF32 off) in
    each setting and in float64 on the CPU: each f32 loss within 2e-5 relative of the float64 one, each
    f32 gradient within 5e-2 of it in norm (f32 gradients of the early
@@ -92,6 +101,7 @@ line is ``{"ok": true, "device": {...}}``.
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -147,6 +157,28 @@ def _device_ms(fn, args_list=((),), iters=ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _copies(base: torch.Tensor) -> list:
+    """``base`` and clones of it, more than twice the L2 cache in all: a
+    call that cycles through them reads device memory, as on the path,
+    where other kernels have evicted its input."""
+    n = max(2, math.ceil(2 * L2_BYTES / (base.numel() * base.element_size())))
+    return [base] + [base.clone() for _ in range(n - 1)]
+
+
+def _enqueue_us(fn, calls: int = 200) -> float:
+    """Host microseconds to enqueue one call of ``fn()``: the host clock
+    over ``calls`` calls, the device's work not waited for."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -205,20 +237,23 @@ def check_kernels(dev, gen):
     ui = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
           "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0}
     for shape, f in shapes:
-        x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        xs = _copies(torch.randn(shape, generator=gen).to(dev, torch.bfloat16))
+        x, args = xs[0], [(x, f) for x in xs]
         got, want = upsample_int(x, f), upsample_int_reference(x, f)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         _require(_bf16_ulp_ok(got, want),
                  f"upsample_int {shape} x{f}: beyond 1 bf16 ulp (max {err})")
-        ms = _time_ms(lambda: upsample_int(x, f))
-        dev_ms = _device_ms(lambda: upsample_int(x, f))
-        plain = _time_ms(lambda: upsample_int_reference(x, f))
-        lib = _time_ms(lambda: F.interpolate(
-            _nchw(x), scale_factor=f, mode="bilinear", align_corners=False))
-        print(f"upsample_int {shape} x{f}: max_abs_err {err:.3e} "
+        ms = _time_cold_ms(upsample_int, args)
+        dev_ms = _device_ms(upsample_int, args)
+        plain = _time_cold_ms(upsample_int_reference, args)
+        lib = _time_cold_ms(lambda x, f: F.interpolate(
+            _nchw(x), scale_factor=f, mode="bilinear", align_corners=False),
+            args)
+        print(f"upsample_int {shape} x{f}, cold: max_abs_err {err:.3e} "
               f"(<= 1 bf16 ulp), kernel {ms:.4f} ms ({dev_ms:.4f} device), "
               f"plain {plain:.4f} ms, F.interpolate {lib:.4f} ms")
+        del xs, args
         ui["ms"] += ms
         ui["device_ms"] += dev_ms
         ui["plain_ms"] += plain
@@ -231,17 +266,19 @@ def check_kernels(dev, gen):
     logits = torch.randn((8, 20, 128, 128), generator=gen) * 4
     us = {"max_abs_err": 0.0, "library_ms": None}
     for dtype in (torch.float32, torch.bfloat16):
-        x = logits.to(dev, dtype)
+        xs = _copies(logits.to(dev, dtype))
+        x, args = xs[0], [(x, (512, 512)) for x in xs]
         got = upsample_sigmoid(x, (512, 512))
         want = upsample_sigmoid_reference(x, (512, 512))
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         _require(got.dtype == torch.float32 and err <= 1e-5,
                  f"upsample_sigmoid {dtype}: max_abs_err {err} > 1e-5")
-        ms = _time_ms(lambda: upsample_sigmoid(x, (512, 512)))
-        dev_ms = _device_ms(lambda: upsample_sigmoid(x, (512, 512)))
-        plain = _time_ms(lambda: upsample_sigmoid_reference(x, (512, 512)))
-        print(f"upsample_sigmoid (8, 20, 128, 128) {dtype} -> 512^2 f32: "
+        ms = _time_cold_ms(upsample_sigmoid, args)
+        dev_ms = _device_ms(upsample_sigmoid, args)
+        plain = _time_cold_ms(upsample_sigmoid_reference, args)
+        del xs, args
+        print(f"upsample_sigmoid (8, 20, 128, 128) {dtype} -> 512^2 f32, cold: "
               f"max_abs_err {err:.3e} (<= 1e-5), kernel {ms:.4f} ms "
               f"({dev_ms:.4f} device), plain {plain:.4f} ms")
         # the path's dtype (bf16, last) gives the recorded times
@@ -278,23 +315,29 @@ def check_training_kernels(dev, gen):
     ub = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
           "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0}
     for (n, h, w, c), f in TRAIN_RESIZES:
-        g = torch.randn((n, f * h, f * w, c), generator=gen).to(dev, torch.bfloat16)
-        got = upsample_int_backward(g, f)
+        gs = _copies(torch.randn((n, f * h, f * w, c), generator=gen).to(
+            dev, torch.bfloat16))
+        g, args = gs[0], [(g, f) for g in gs]
+        got, again = upsample_int_backward(g, f), upsample_int_backward(g, f)
         want = upsample_int_backward_reference(g, f)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         _require(_bf16_sum_ok(got, want),
                  f"upsample_int_bwd {(n, h, w, c)} x{f}: beyond 1 bf16 ulp "
                  f"+ 2^-20 of the largest (max {err})")
-        ms = _time_ms(lambda: upsample_int_backward(g, f))
-        dev_ms = _device_ms(lambda: upsample_int_backward(g, f))
-        plain = _time_ms(lambda: upsample_int_backward_reference(g, f))
-        lib = _time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
-            _nchw(g), [f * h, f * w], [n, c, h, w], False))
-        print(f"upsample_int_bwd {(n, h, w, c)} x{f}: max_abs_err {err:.3e} "
-              f"(<= 1 bf16 ulp + 2^-20 max), kernel {ms:.4f} ms "
-              f"({dev_ms:.4f} device), plain {plain:.4f} ms, "
-              f"upsample_bilinear2d_backward {lib:.4f} ms")
+        _require(torch.equal(got, again),
+                 f"upsample_int_bwd {(n, h, w, c)} x{f}: two launches differ")
+        ms = _time_cold_ms(upsample_int_backward, args)
+        dev_ms = _device_ms(upsample_int_backward, args)
+        plain = _time_cold_ms(upsample_int_backward_reference, args)
+        lib = _time_cold_ms(
+            lambda g, f: torch.ops.aten.upsample_bilinear2d_backward(
+                _nchw(g), [f * h, f * w], [n, c, h, w], False), args)
+        print(f"upsample_int_bwd {(n, h, w, c)} x{f}, cold: max_abs_err "
+              f"{err:.3e} (<= 1 bf16 ulp + 2^-20 max, repeats bit for bit), "
+              f"kernel {ms:.4f} ms ({dev_ms:.4f} device), plain {plain:.4f} "
+              f"ms, upsample_bilinear2d_backward {lib:.4f} ms")
+        del gs, args
         ub["ms"] += ms
         ub["device_ms"] += dev_ms
         ub["plain_ms"] += plain
@@ -314,11 +357,15 @@ def check_training_kernels(dev, gen):
                  and _bf16_sum_ok(gx, gx_ref),
                  f"resize_bilinear autograd {(n, h, w, c)} x{f}: kernel route "
                  "beyond 1 bf16 ulp (+ 2^-20 max for the gradient) of the "
-                 "plain route")
+                 f"plain route (forward max diff "
+                 f"{float((y - y_ref).abs().max())}, gradient "
+                 f"{float((gx.float() - gx_ref.float()).abs().max())} of "
+                 f"largest {float(gx_ref.float().abs().max())})")
 
     nf = {"max_abs_err": 0.0, "library_ms": None}
-    imgs = torch.randint(0, 256, (16, 512, 512, 3), generator=gen,
-                         dtype=torch.uint8).to(dev)
+    imgs_all = _copies(torch.randint(0, 256, (16, 512, 512, 3), generator=gen,
+                                     dtype=torch.uint8).to(dev))
+    imgs = imgs_all[0]
     flip = (torch.arange(16) % 3 == 0).to(dev, torch.int32)  # mixed flags
     for dtype in (torch.float32, torch.bfloat16):
         got = normalize_and_flip(imgs, flip, out_dtype=dtype)
@@ -327,14 +374,14 @@ def check_training_kernels(dev, gen):
         err = float((got.float() - want.float()).abs().max())
         _require(got.dtype == dtype and torch.equal(got, want),
                  f"normalize_and_flip {dtype}: not bit-exact (max {err})")
-        ms = _time_ms(lambda: normalize_and_flip(imgs, flip, out_dtype=dtype))
-        dev_ms = _device_ms(lambda: normalize_and_flip(imgs, flip,
-                                                          out_dtype=dtype))
-        plain = _time_ms(lambda: normalize_and_flip_reference(
-            imgs, flip, out_dtype=dtype))
+        args = [(im, flip, (0.485, 0.456, 0.406), (0.229, 0.224, 0.225),
+                 dtype) for im in imgs_all]
+        ms = _time_cold_ms(normalize_and_flip, args)
+        dev_ms = _device_ms(normalize_and_flip, args)
+        plain = _time_cold_ms(normalize_and_flip_reference, args)
         print(f"normalize_and_flip (16, 512, 512, 3) u8 -> {dtype}, mixed "
-              f"flags: max_abs_err {err:.3e} (bit-exact), kernel {ms:.4f} ms "
-              f"({dev_ms:.4f} device), plain {plain:.4f} ms")
+              f"flags, cold: max_abs_err {err:.3e} (bit-exact), kernel "
+              f"{ms:.4f} ms ({dev_ms:.4f} device), plain {plain:.4f} ms")
         # the path's dtype (bf16, last) gives the recorded times
         nf.update(ms=ms, device_ms=dev_ms, plain_ms=plain, max_abs_err=max(err, nf["max_abs_err"]),
                   bytes=imgs.numel() + got.numel() * got.element_size(),
@@ -356,11 +403,8 @@ def _activations(gen, dev, hw: int, c: int, dtype, loc: float = 0.0):
     """Copies of one (16, H, W, C) NHWC input, more than the L2 cache
     holds."""
     side = math.isqrt(hw)
-    base = (torch.randn((BN_BATCH, side, side, c), generator=gen) * 2
-            + loc).to(dev, dtype)
-    copies = max(2, math.ceil(2 * L2_BYTES / (base.numel()
-                                              * base.element_size())))
-    return [base] + [base.clone() for _ in range(copies - 1)]
+    return _copies((torch.randn((BN_BATCH, side, side, c), generator=gen) * 2
+                    + loc).to(dev, dtype))
 
 
 def _sums_ok(got, want, absum) -> bool:
@@ -537,33 +581,40 @@ def check_bn_kernels(dev, gen):
     return recs["channel_moments"], recs["channel_dual_sums"]
 
 
-# the sweep's variants of csrc/bn_stats.cu: (name, text replaced, by what)
+# the sweep's variants of csrc/bn_stats.cu: (name, ((text replaced, by
+# what), ...))
 BN_VARIANTS = [
-    ("16 loads in flight", "constexpr int kDepth = 8;",
-     "constexpr int kDepth = 16;"),
+    ("16 loads in flight", (("constexpr int kDepth = 8;",
+                             "constexpr int kDepth = 16;"),)),
     ("no last block (stream and partials only)",
-     "  // 3. the last block of each group",
-     "  if (p.eps >= 0.0f) return;\n  // 3. the last block of each group"),
-    ("launch only", "  // 1. the slab's rows",
-     "  if (p.eps >= 0.0f) return;\n  // 1. the slab's rows"),
+     (("  // 3. the last block of each group",
+       "  if (p.eps >= 0.0f) return;\n  // 3. the last block of each group"),)),
+    ("launch only", (("  // 1. the slab's rows",
+                      "  if (p.eps >= 0.0f) return;\n  // 1. the slab's rows"),)),
 ]
 
 
-def _bn_variant_libs():
-    """The variants of ``BN_VARIANTS``, each built (one ``nvcc`` each, all
-    at once) into its own library under ``build/bn_variants/``."""
+def _variant_libs(source: str, variants, entries, what: str,
+                  kernel: str = "") -> dict:
+    """The ``variants`` of ``csrc/<source>``, each built (one ``nvcc`` each,
+    all at once) into its own library under ``build/<what>/``; their C
+    entry points ``entries`` bound as the port binds them. With ``kernel``,
+    prints what ``ptxas`` says of that kernel in each (registers, spills)."""
     import ctypes
 
     from basi_tpu_torch.kernels import _build
 
-    src = (_build.CSRC / "bn_stats.cu").read_text()
-    out = _build.BUILD_ROOT.parent / "bn_variants"
+    src = (_build.CSRC / source).read_text()
+    out = _build.BUILD_ROOT.parent / what
     out.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for i, (name, old, new) in enumerate(BN_VARIANTS):
-        _require(old in src, f"bn sweep: {name!r} finds no {old!r}")
+    for i, (name, edits) in enumerate(variants):
+        text = src
+        for old, new in edits:
+            _require(old in text, f"{what}: {name!r} finds no {old!r}")
+            text = text.replace(old, new)
         cu, so = out / f"v{i}.cu", out / f"v{i}.so"
-        cu.write_text(src.replace(old, new))
+        cu.write_text(text)
         jobs.append((name, so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
              str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -571,13 +622,29 @@ def _bn_variant_libs():
     libs = {}
     for name, so, proc in jobs:
         log, _ = proc.communicate()
-        _require(proc.returncode == 0, f"bn sweep: {name!r} did not build\n{log}")
+        _require(proc.returncode == 0, f"{what}: {name!r} did not build\n{log}")
+        if kernel:
+            print(f"{what}, {name}: {_ptxas_summary(log, kernel)}")
         lib = ctypes.CDLL(str(so))
-        for entry in ("basi_channel_moments_bf16", "basi_channel_dual_sums_bf16",
-                      "basi_bn_stats_blocks_per_sm"):
+        for entry in entries:
             getattr(lib, entry).argtypes = list(_build.SIGNATURES[entry])
         libs[name] = lib
     return libs
+
+
+def _ptxas_summary(log: str, kernel: str) -> str:
+    """Registers and spills that ``ptxas -v`` reports for each template
+    instance of the kernel whose mangled name holds ``kernel`` (named by
+    its first integer template argument)."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else ""
+        elif name and kernel in name and ("spill" in line or "Used" in line):
+            arg = re.search(r"ILi(\d+)E", name)
+            out.append(f"<{arg.group(1) if arg else '?'}> "
+                       f"{line.split(':', 1)[-1].strip()}")
+    return "; ".join(out)
 
 
 def sweep_bn_layout(dev, gen) -> None:
@@ -591,7 +658,9 @@ def sweep_bn_layout(dev, gen) -> None:
 
     from basi_tpu_torch.kernels import bn_stats as B
 
-    libs = _bn_variant_libs()
+    libs = _variant_libs("bn_stats.cu", BN_VARIANTS, (
+        "basi_channel_moments_bf16", "basi_channel_dual_sums_bf16",
+        "basi_bn_stats_blocks_per_sm"), "bn_variants")
     built = B._build.library()
     entry = {"moments": "basi_channel_moments_bf16",
              "dual": "basi_channel_dual_sums_bf16"}
@@ -657,16 +726,100 @@ def sweep_bn_layout(dev, gen) -> None:
              "torch.batch_norm_backward_reduce": lambda: _bn_stats_library(
                  g, x, zero, one)}
     for name, fn in calls.items():
-        for _ in range(WARMUP):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        host = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
         print(f"host time to enqueue one {name} call ({BN_BATCH}x256, 512): "
-              f"{host:.1f} us")
+              f"{_enqueue_us(fn):.1f} us")
+
+
+# the sweep's other tilings of csrc/upsample_int_bwd.cu (input rows per
+# band, 8-channel vectors per block); the built one is kTY 4, kSlab 4
+BWD_VARIANTS = [
+    (f"kTY {ty}, kSlab {slab}", (("constexpr int kTY = 4;",
+                                  f"constexpr int kTY = {ty};"),
+                                 ("constexpr int kSlab = 4;",
+                                  f"constexpr int kSlab = {slab};")))
+    for ty, slab in ((4, 2), (8, 1))]
+
+
+def sweep_bwd_tiles(dev, gen) -> None:
+    """Phase 2: the upsample_int backward's device time, cold, at the nine
+    training shapes and over a step's nine calls, as built and built with
+    the tilings of ``BWD_VARIANTS``; each variant's result must equal the
+    built kernel's bit for bit (the same sums in the same order)."""
+    from basi_tpu_torch.kernels import _build
+
+    entry = "basi_upsample_int_bwd_bf16"
+    built = _build.library()
+    print(f"bwd_variants, kTY 4, kSlab 4 (built): "
+          f"{_ptxas_summary(_build.build_info['log'], 'upsample_int_bwd')}")
+    libs = {"kTY 4, kSlab 4 (built)": built,
+            **_variant_libs("upsample_int_bwd.cu", BWD_VARIANTS, (entry,),
+                            "bwd_variants", "upsample_int_bwd")}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    totals = dict.fromkeys(libs, 0.0)
+    for (n, h, w, c), f in TRAIN_RESIZES:
+        gs = _copies(torch.randn((n, f * h, f * w, c), generator=gen).to(
+            dev, torch.bfloat16))
+        line, want = [], None
+        for name, lib in libs.items():
+            gx = torch.empty((n, h, w, c), dtype=torch.bfloat16, device=dev)
+
+            def call(g, fn=getattr(lib, entry), gx=gx):
+                _build.check(fn(g.data_ptr(), gx.data_ptr(), n, h, w, c, f,
+                                stream), "bwd sweep")
+            call(gs[0])
+            torch.cuda.synchronize()
+            want = gx.clone() if want is None else want
+            _require(torch.equal(gx, want),
+                     f"bwd sweep {name} {(n, h, w, c)} x{f}: differs from "
+                     "the built kernel")
+            ms = _device_ms(call, [(g,) for g in gs])
+            totals[name] += ms
+            line.append(f"{name} {ms * 1e3:.1f} us "
+                        f"({2 * (gs[0].numel() + gx.numel()) / ms / 1e9:.2f} "
+                        "TB/s)")
+        print(f"bwd sweep {(n, h, w, c)} x{f}, cold: " + "; ".join(line))
+        del gs
+    for name, ms in totals.items():
+        print(f"bwd sweep, one step's 9 calls, {name}: {ms:.4f} ms (device)")
+
+
+def time_enqueue(dev, gen) -> None:
+    """Phase 2: the host's time to enqueue one call of each of the four
+    older wrappers, at one shape of their path each, and to get the stream
+    the way the wrappers did before the raw handle and the way they do."""
+    from basi_tpu_torch.kernels import _build
+    from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
+    from basi_tpu_torch.kernels.upsample_int import (
+        upsample_int,
+        upsample_int_backward,
+    )
+    from basi_tpu_torch.kernels.upsample_sigmoid import upsample_sigmoid
+
+    x = torch.randn((8, 32, 32, 256), generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn((16, 128, 128, 64), generator=gen).to(dev, torch.bfloat16)
+    logits = torch.randn((8, 20, 128, 128), generator=gen).to(dev, torch.bfloat16)
+    imgs = torch.randint(0, 256, (16, 512, 512, 3), generator=gen,
+                         dtype=torch.uint8).to(dev)
+    flip = (torch.arange(16) % 3 == 0).to(dev, torch.int32)
+    calls = {
+        "upsample_int (8, 32, 32, 256) x2": lambda: upsample_int(x, 2),
+        "upsample_int_bwd (16, 32, 32, 64) x4":
+            lambda: upsample_int_backward(g, 4),
+        "upsample_sigmoid (8, 20, 128, 128) bf16 -> 512^2":
+            lambda: upsample_sigmoid(logits, (512, 512)),
+        "normalize_and_flip (16, 512, 512, 3) -> bf16":
+            lambda: normalize_and_flip(imgs, flip, out_dtype=torch.bfloat16)}
+    for name, fn in calls.items():
+        print(f"host time to enqueue one {name} call: {_enqueue_us(fn):.1f} us")
+
+    def context_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    for name, fn in (("torch.cuda.device + current_stream", context_stream),
+                     ("_build.stream (raw handle)",
+                      lambda: _build.stream(dev))):
+        print(f"host time to get the stream, {name}: {_enqueue_us(fn):.2f} us")
 
 
 def smoke_weights(cfg, gen):
@@ -955,6 +1108,7 @@ def time_steps(dev) -> dict:
         windows[impl].append(start.elapsed_time(end) / WINDOW)
     device_ms = {impl: profile_steps(trainer, batch, losses, impl)
                  for impl, (trainer, batch, losses) in runs.items()}
+    strided_cotangents(dev, *runs["xla"])
     n = runs["xla"][0].cfg.data.batch_size
     for impl, (trainer, _, losses) in runs.items():
         losses = [float(v) for v in losses]
@@ -1097,6 +1251,36 @@ def profile_steps(trainer, batch, losses, bn_impl: str) -> float:
     return total
 
 
+def strided_cotangents(dev, trainer, batch, losses) -> None:
+    """Phase 5: how many of one step's upsample_int backward calls receive
+    a cotangent that is not NHWC-contiguous, which the wrapper copies
+    before its kernel reads it, and the device time of those copies."""
+    from basi_tpu_torch.kernels import upsample_int as U
+
+    real, seen = U._UpsampleInt.backward, []
+
+    def recording(ctx, g):
+        seen.append((tuple(g.shape), g.stride(), g.is_contiguous()))
+        return real(ctx, g)
+
+    U._UpsampleInt.backward = staticmethod(recording)
+    try:
+        losses.append(trainer.train_step(trainer.state, batch)["loss"])
+    finally:
+        U._UpsampleInt.backward = staticmethod(real)
+    _require(len(seen) == PER_STEP["xla"]["upsample_int_bwd"],
+             f"{len(seen)} upsample_int backward calls in a step")
+    strided = [(shape, stride) for shape, stride, contig in seen if not contig]
+    copy_ms = 0.0
+    for shape, stride in strided:
+        t = torch.empty_strided(shape, stride, dtype=torch.bfloat16, device=dev)
+        copy_ms += _time_ms(t.contiguous)
+    print(f"cotangents: {len(strided)} of a step's {len(seen)} upsample_int "
+          f"backward calls get one that is not NHWC-contiguous "
+          f"{[s for s, _ in strided]}; copying them takes {copy_ms:.4f} ms "
+          "(CUDA events, warm)")
+
+
 def check_f32_step(dev, bn_impl: str):
     """Phase 6: one f32 train step of the tiny config on the card and on the
     CPU from the same weights and batch: loss and gradients within 1e-3."""
@@ -1187,6 +1371,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     ui, us = check_kernels(dev, gen)
     ub, nf = check_training_kernels(dev, gen)
+    sweep_bwd_tiles(dev, gen)
+    time_enqueue(dev, gen)
     cm, cds = check_bn_kernels(dev, gen)
     sweep_bn_layout(dev, gen)
 

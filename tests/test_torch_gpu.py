@@ -122,13 +122,31 @@ def test_gpu_upsample_sigmoid_kernel_matches_plain(rng, shape, out_hw, dtype):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape,f", [
+# (N, f*h, f*w, C) cotangents of the backward: earlier cases; for each f, h
+# or w of 1, 3 and 5 (a ragged band of the two-stage kernel) with C = 8
+# (less than its channel slab), 24 and 264 (not a multiple of it); heights
+# and widths that need a second band or column tile (9, 17; 70, 33, 17
+# against tiles of 64, 32 and 16 input columns); the nine training resizes
+# at batch 2.
+BWD_CASES = [
     ((2, 8, 8, 8), 2), ((1, 7, 5, 64), 2), ((3, 4, 6, 16), 4),
     ((1, 3, 4, 8), 8), ((1, 1, 1, 8), 4), ((16, 16, 16, 256), 2),
     ((16, 32, 32, 64), 4), ((16, 16, 16, 128), 8),
-])
+    ((2, 1, 5, 24), 2), ((1, 3, 1, 8), 2), ((2, 5, 3, 264), 2),
+    ((1, 5, 1, 24), 4), ((2, 1, 3, 264), 4), ((1, 3, 5, 8), 4),
+    ((1, 1, 3, 264), 8), ((2, 5, 5, 24), 8), ((1, 3, 1, 8), 8),
+    ((1, 9, 70, 16), 2), ((1, 17, 33, 8), 4), ((2, 9, 17, 24), 8),
+    ((2, 16, 16, 256), 2), ((2, 32, 32, 256), 2), ((2, 64, 64, 256), 2),
+    ((2, 64, 64, 64), 2), ((2, 32, 32, 64), 4), ((2, 16, 16, 64), 8),
+    ((2, 64, 64, 128), 2), ((2, 32, 32, 128), 4), ((2, 16, 16, 128), 8),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,f", BWD_CASES)
 def test_gpu_upsample_int_backward_kernel_matches_plain(rng, shape, f):
+    """Within 1 bf16 ulp plus 2^-20 of the largest of the plain version,
+    and two launches bit for bit equal (no atomics)."""
     dev = _cuda()
     n, h, w, c = shape
     g = torch.from_numpy(rng.randn(n, f * h, f * w, c).astype(np.float32)).to(
@@ -140,6 +158,7 @@ def test_gpu_upsample_int_backward_kernel_matches_plain(rng, shape, f):
     assert got.shape == shape and got.dtype == torch.bfloat16
     assert_within_bf16_sum(got, U.upsample_int_backward_reference(g, f),
                            f"{shape} x{f}")
+    assert torch.equal(U.upsample_int_backward(g, f), got), "launches differ"
     # a cotangent that is not NHWC-contiguous is made so first
     gcl = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     torch.testing.assert_close(U.upsample_int_backward(gcl, f), got,
@@ -147,8 +166,10 @@ def test_gpu_upsample_int_backward_kernel_matches_plain(rng, shape, f):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,f", [((2, 8, 8, 64), 2), ((3, 4, 4, 16), 4),
-                                     ((1, 2, 3, 128), 8), ((16, 16, 16, 64), 8)])
+@pytest.mark.parametrize("shape,f", [
+    ((2, 8, 8, 64), 2), ((3, 4, 4, 16), 4), ((1, 2, 3, 128), 8),
+    ((16, 16, 16, 64), 8), ((1, 5, 3, 24), 2), ((2, 3, 5, 264), 4),
+    ((1, 1, 5, 8), 8), ((2, 9, 17, 16), 8), ((2, 64, 64, 128), 2)])
 def test_gpu_resize_gradients_kernel_route_match_plain_route(rng, shape, f):
     """``torch.autograd.grad`` through ``resize_bilinear`` on the card (the
     kernels' autograd.Function) against the plain route (einsum autograd)

@@ -276,18 +276,26 @@ def _capturing(tx, sink):
     return optax.GradientTransformation(tx.init, update)
 
 
-def _run_steps(cfg, dtype: str, monkeypatch, n_steps: int = 2):
+_TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+                 "bfloat16": torch.bfloat16}
+
+
+def _run_steps(cfg, dtype: str, monkeypatch, n_steps: int = 2,
+               param_dtype: str = ""):
     """``n_steps`` of the JAX and the port's ``make_train_step`` from the
     same variables on the same batches (masks raw for JAX, bit-packed for
-    the port), params and activations in ``dtype`` on both sides. Yields,
-    after each step, (JAX metrics, JAX raw grads, JAX state, port metrics,
-    port raw grads as a JAX tree, port state)."""
-    tdtype = {"float32": torch.float32, "float64": torch.float64}[dtype]
+    the port), activations in ``dtype`` and params in ``param_dtype``
+    (default: ``dtype``) on both sides. Yields, after each step, (JAX
+    metrics, JAX raw grads, JAX state, port metrics, port raw grads as a
+    JAX tree, port state)."""
+    param_dtype = param_dtype or dtype
+    tdtype = _TORCH_DTYPES[dtype]
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, dtype=dtype, param_dtype=dtype))
+        cfg.model, dtype=dtype, param_dtype=param_dtype))
     rng = np.random.RandomState(7)
     batches = [tiny_batch(rng, n=4) for _ in range(n_steps)]
-    model = create_model(cfg.model, "cpu", train=True).to(tdtype)
+    model = create_model(cfg.model, "cpu", train=True).to(
+        _TORCH_DTYPES[param_dtype])
     names = [k for k, _ in model.named_parameters()]
     tgrads: list = []
     real_clip = TSTEP.clip_by_global_norm
