@@ -20,7 +20,6 @@ from basi_tpu_torch.kernels import _build
 
 _ENTRY = {torch.bfloat16: "basi_normalize_flip_bf16",
           torch.float32: "basi_normalize_flip_f32"}
-_GRID_MAX = 65535  # the kernel's grid puts images on y
 
 
 def _affine(mean, std) -> tuple[np.ndarray, np.ndarray]:
@@ -71,9 +70,6 @@ def normalize_and_flip(images_u8: torch.Tensor, flip: torch.Tensor,
     if not images_u8.is_contiguous():
         raise ValueError("normalize_and_flip: images must be contiguous NHWC")
     n, h, w, _ = images_u8.shape
-    if n > _GRID_MAX:
-        raise ValueError(f"normalize_and_flip: batch {n} above the kernel "
-                         f"grid's {_GRID_MAX}")
     y = torch.empty(images_u8.shape, dtype=out_dtype, device=images_u8.device)
     if y.numel() == 0:
         return y

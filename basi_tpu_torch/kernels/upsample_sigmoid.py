@@ -15,7 +15,6 @@ from basi_tpu_torch.ops.resize import _interp_matrix
 
 _ENTRY = {torch.float32: "basi_upsample_sigmoid_f32",
           torch.bfloat16: "basi_upsample_sigmoid_bf16"}
-_GRID_MAX = 65535  # the kernel's grid puts masks on z
 
 
 def upsample_sigmoid(logits: torch.Tensor,
@@ -39,9 +38,6 @@ def upsample_sigmoid(logits: torch.Tensor,
         raise ValueError(f"upsample_sigmoid: empty spatial size {(h, w)} -> {(oh, ow)}")
     x = logits.reshape(-1, h, w).contiguous()
     b = x.shape[0]
-    if b > _GRID_MAX:
-        raise ValueError(f"upsample_sigmoid: {b} masks, above the kernel "
-                         f"grid's {_GRID_MAX}")
     y = torch.empty((b, oh, ow), dtype=torch.float32, device=x.device)
     if b:
         err = getattr(_build.library(), _ENTRY[x.dtype])(

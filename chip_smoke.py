@@ -14,13 +14,21 @@
    and the library call read the same copies:
    ``upsample_int`` within 1 bf16 ulp and its backward
    within 1 bf16 ulp plus 2^-20 of the largest value (cancelling f32 sums)
-   and bit for bit over two launches, ``upsample_sigmoid`` within 1e-5,
-   ``normalize_and_flip`` bit-exact (bf16 and f32 out, mixed flip flags),
-   and ``torch.autograd.grad`` through ``resize_bilinear`` on the kernel
+   and bit for bit over two launches, ``upsample_sigmoid`` within 1e-5 and
+   bit for bit over two launches (bf16 and f32 in, per served answer and
+   per eval batch), ``normalize_and_flip`` bit-exact (bf16 and f32 out,
+   mixed flip flags), each of these two beside its bound and its output's
+   write floor (``y.zero_()`` of the same size, device time), and
+   ``torch.autograd.grad`` through ``resize_bilinear`` on the kernel
    route against the plain route. Then the backward's device time built
-   with the other tilings of ``BWD_VARIANTS`` (``sweep_bwd_tiles``), and
-   the host's time to enqueue one call of each of the four older wrappers
-   and to get the stream the old way and the new (``time_enqueue``).
+   with the other tilings of ``BWD_VARIANTS`` (``sweep_bwd_tiles``); the
+   two ingest kernels' device time built as they are and with the
+   variants of ``SIGMOID_VARIANTS`` and ``NORMALIZE_VARIANTS``, each bit
+   for bit equal to the built one, with ``ptxas``'s registers
+   (``sweep_ingest_kernels``, into ``build/sigmoid_variants/`` and
+   ``build/normalize_variants/``); and the host's time to enqueue one call
+   of each of the four older wrappers and to get the stream the old way
+   and the new (``time_enqueue``).
    ``channel_moments`` and ``channel_dual_sums`` at the 12 (H*W, C) of
    ResNet-50's 53 BatchNorms at 512^2, batch 16, bf16, and at two shapes in
    f32: per channel within ``1e-5 * sum |term|`` of the plain version (f32
@@ -262,30 +270,44 @@ def check_kernels(dev, gen):
         ui["bytes"] += 2 * (x.numel() + got.numel())
         ui["flops"] += 7 * got.numel()  # 4 taps: 4 mul + 3 add per output
 
-    # The serving path hands it bf16 slot masks; f32 input is checked too.
-    logits = torch.randn((8, 20, 128, 128), generator=gen) * 4
+    # Per served answer (20 slots) and per eval batch (8 x 20); the serving
+    # path hands it bf16 slot masks, and f32 input is checked too.
     us = {"max_abs_err": 0.0, "library_ms": None}
-    for dtype in (torch.float32, torch.bfloat16):
-        xs = _copies(logits.to(dev, dtype))
-        x, args = xs[0], [(x, (512, 512)) for x in xs]
-        got = upsample_sigmoid(x, (512, 512))
-        want = upsample_sigmoid_reference(x, (512, 512))
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        _require(got.dtype == torch.float32 and err <= 1e-5,
-                 f"upsample_sigmoid {dtype}: max_abs_err {err} > 1e-5")
-        ms = _time_cold_ms(upsample_sigmoid, args)
-        dev_ms = _device_ms(upsample_sigmoid, args)
-        plain = _time_cold_ms(upsample_sigmoid_reference, args)
-        del xs, args
-        print(f"upsample_sigmoid (8, 20, 128, 128) {dtype} -> 512^2 f32, cold: "
-              f"max_abs_err {err:.3e} (<= 1e-5), kernel {ms:.4f} ms "
-              f"({dev_ms:.4f} device), plain {plain:.4f} ms")
-        # the path's dtype (bf16, last) gives the recorded times
-        us.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                  max_abs_err=max(err, us["max_abs_err"]),
-                  bytes=x.numel() * x.element_size() + 4 * got.numel(),
-                  flops=12 * got.numel())  # 7 for the taps, ~5 the sigmoid
+    for shape in SIGMOID_SHAPES:
+        logits = torch.randn(shape, generator=gen) * 4
+        out = torch.empty(shape[:-2] + (512, 512), device=dev)
+        floor = _device_ms(out.zero_)
+        del out
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = _copies(logits.to(dev, dtype))
+            x, args = xs[0], [(x, (512, 512)) for x in xs]
+            got = upsample_sigmoid(x, (512, 512))
+            again = upsample_sigmoid(x, (512, 512))
+            want = upsample_sigmoid_reference(x, (512, 512))
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            _require(got.dtype == torch.float32 and err <= 1e-5,
+                     f"upsample_sigmoid {shape} {dtype}: max_abs_err {err} "
+                     "> 1e-5")
+            _require(torch.equal(got, again),
+                     f"upsample_sigmoid {shape} {dtype}: two launches differ")
+            ms = _time_cold_ms(upsample_sigmoid, args)
+            dev_ms = _device_ms(upsample_sigmoid, args)
+            plain = _time_cold_ms(upsample_sigmoid_reference, args)
+            nbytes = x.numel() * x.element_size() + 4 * got.numel()
+            flops = 12 * got.numel()  # 7 for the taps, ~5 the sigmoid
+            bound, _ = _bound(nbytes, flops)
+            del xs, args, got, again, want
+            print(f"upsample_sigmoid {shape} {dtype} -> 512^2 f32, cold: "
+                  f"max_abs_err {err:.3e} (<= 1e-5, repeats bit for bit), "
+                  f"kernel {ms:.4f} ms ({dev_ms:.4f} device), plain "
+                  f"{plain:.4f} ms, bound {bound:.4f} ms "
+                  f"({100 * bound / dev_ms:.0f}% on the device), write "
+                  f"floor {floor:.4f} ms (y.zero_(), device)")
+            us["max_abs_err"] = max(err, us["max_abs_err"])
+            if len(shape) == 4:  # the eval batch in bf16 (last) is recorded
+                us.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                          bytes=nbytes, flops=flops)
     return ui, us
 
 
@@ -382,9 +404,17 @@ def check_training_kernels(dev, gen):
         print(f"normalize_and_flip (16, 512, 512, 3) u8 -> {dtype}, mixed "
               f"flags, cold: max_abs_err {err:.3e} (bit-exact), kernel "
               f"{ms:.4f} ms ({dev_ms:.4f} device), plain {plain:.4f} ms")
+        nbytes = imgs.numel() + got.numel() * got.element_size()
+        bound, _ = _bound(nbytes, 3 * got.numel())
+        out = torch.empty_like(got)
+        floor = _device_ms(out.zero_)
+        del out
+        print(f"normalize_and_flip u8 -> {dtype}: bound {bound:.4f} ms "
+              f"({100 * bound / dev_ms:.0f}% on the device), write floor "
+              f"{floor:.4f} ms (y.zero_(), device)")
         # the path's dtype (bf16, last) gives the recorded times
-        nf.update(ms=ms, device_ms=dev_ms, plain_ms=plain, max_abs_err=max(err, nf["max_abs_err"]),
-                  bytes=imgs.numel() + got.numel() * got.element_size(),
+        nf.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                  max_abs_err=max(err, nf["max_abs_err"]), bytes=nbytes,
                   flops=3 * got.numel())
     return ub, nf
 
@@ -581,6 +611,10 @@ def check_bn_kernels(dev, gen):
     return recs["channel_moments"], recs["channel_dual_sums"]
 
 
+# (masks, h, w) of upsample_sigmoid's two calls on the path: the slots of
+# one served answer and of an eval batch of 8 images, to 512^2
+SIGMOID_SHAPES = [(20, 128, 128), (8, 20, 128, 128)]
+
 # the sweep's variants of csrc/bn_stats.cu: (name, ((text replaced, by
 # what), ...))
 BN_VARIANTS = [
@@ -635,15 +669,16 @@ def _variant_libs(source: str, variants, entries, what: str,
 def _ptxas_summary(log: str, kernel: str) -> str:
     """Registers and spills that ``ptxas -v`` reports for each template
     instance of the kernel whose mangled name holds ``kernel`` (named by
-    its first integer template argument)."""
+    its first integer template argument, else by its mangled arguments)."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else ""
         elif name and kernel in name and ("spill" in line or "Used" in line):
             arg = re.search(r"ILi(\d+)E", name)
-            out.append(f"<{arg.group(1) if arg else '?'}> "
-                       f"{line.split(':', 1)[-1].strip()}")
+            label = arg.group(1) if arg else re.sub(
+                r"^.*?" + kernel + r"\w*?I", "", name).split("EE")[0]
+            out.append(f"<{label}> {line.split(':', 1)[-1].strip()}")
     return "; ".join(out)
 
 
@@ -781,6 +816,95 @@ def sweep_bwd_tiles(dev, gen) -> None:
         del gs
     for name, ms in totals.items():
         print(f"bwd sweep, one step's 9 calls, {name}: {ms:.4f} ms (device)")
+
+
+# the sweep's variants of csrc/upsample_sigmoid.cu (built: registers
+# capped so that an SM holds 6 blocks) and csrc/normalize_aug.cu (built:
+# runs of 16 pixels, 128 threads a block, streaming stores)
+SIGMOID_VARIANTS = [
+    (f"{n} blocks an SM", (("constexpr int kMinBlocks = 6;",
+                            f"constexpr int kMinBlocks = {n};"),))
+    for n in (4, 8)]
+NORMALIZE_VARIANTS = [
+    ("kRun 32, 64 threads", (("constexpr int kRun = 16;",
+                              "constexpr int kRun = 32;"),
+                             ("constexpr int kThreads = 128;",
+                              "constexpr int kThreads = 64;"))),
+    ("plain stores", (("{ __stcs(p, v); }", "{ *p = v; }"),)),
+]
+
+
+def sweep_ingest_kernels(dev, gen) -> None:
+    """Phase 2: ``upsample_sigmoid`` and ``normalize_and_flip``, device time,
+    cold, at their path's shapes, as built and built with the variants of
+    ``SIGMOID_VARIANTS`` and ``NORMALIZE_VARIANTS`` (through the C entry
+    points, on preallocated outputs); each variant's result must equal the
+    built kernel's bit for bit. Prints ``ptxas``'s registers of each."""
+    from basi_tpu_torch.kernels import _build
+    from basi_tpu_torch.kernels.normalize_aug import _affine_args
+
+    built = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sweeps = [("upsample_sigmoid.cu", "sigmoid_variants", SIGMOID_VARIANTS,
+               "upsample_sigmoid_kernel", "6 blocks an SM (built)",
+               ("basi_upsample_sigmoid_f32", "basi_upsample_sigmoid_bf16")),
+              ("normalize_aug.cu", "normalize_variants", NORMALIZE_VARIANTS,
+               "normalize_flip", "kRun 16, 128 threads (built)",
+               ("basi_normalize_flip_bf16", "basi_normalize_flip_f32"))]
+    libs = {}
+    for source, what, variants, kernel, name, entries in sweeps:
+        print(f"{what}, {name}: "
+              f"{_ptxas_summary(_build.build_info['log'], kernel)}")
+        libs[source] = {name: built, **_variant_libs(
+            source, variants, entries, what, kernel)}
+
+    def sweep(what, libs, entry, inputs, out, call):
+        """Device ms of ``call(fn, x, out)`` over ``inputs`` for each lib,
+        each bit for bit equal to the first (built) one's result."""
+        line, want = [], None
+        for name, lib in libs.items():
+            fn = getattr(lib, entry)
+            call(fn, inputs[0], out)
+            torch.cuda.synchronize()
+            want = out.clone() if want is None else want
+            _require(torch.equal(out, want),
+                     f"{what} {name}: differs from the built kernel")
+            ms = _device_ms(lambda x: call(fn, x, out), [(x,) for x in inputs])
+            nbytes = inputs[0].numel() * inputs[0].element_size() + (
+                out.numel() * out.element_size())
+            line.append(f"{name} {ms * 1e3:.1f} us ({nbytes / ms / 1e9:.2f} "
+                        "TB/s)")
+        print(f"{what}, cold: " + "; ".join(line))
+
+    for shape in SIGMOID_SHAPES:
+        b = math.prod(shape[:-2])
+        logits = torch.randn(shape, generator=gen) * 4
+        out = torch.empty((b, 512, 512), device=dev)
+        for dtype, entry in ((torch.bfloat16, "basi_upsample_sigmoid_bf16"),
+                             (torch.float32, "basi_upsample_sigmoid_f32")):
+            xs = _copies(logits.to(dev, dtype))
+
+            def call(fn, x, out, b=b):
+                _build.check(fn(x.data_ptr(), out.data_ptr(), b, 128, 128,
+                                512, 512, stream), "sigmoid sweep")
+            sweep(f"sigmoid sweep {shape} {dtype} -> 512^2",
+                  libs["upsample_sigmoid.cu"], entry, xs, out, call)
+            del xs
+        del out
+    imgs = _copies(torch.randint(0, 256, (16, 512, 512, 3), generator=gen,
+                                 dtype=torch.uint8).to(dev))
+    flip = (torch.arange(16) % 3 == 0).to(dev, torch.int32)
+    affine = _affine_args((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+    for dtype, entry in ((torch.bfloat16, "basi_normalize_flip_bf16"),
+                         (torch.float32, "basi_normalize_flip_f32")):
+        out = torch.empty(imgs[0].shape, dtype=dtype, device=dev)
+
+        def call(fn, x, out):
+            _build.check(fn(x.data_ptr(), flip.data_ptr(), out.data_ptr(), 16,
+                            512, 512, *affine, stream), "normalize sweep")
+        sweep(f"normalize sweep (16, 512, 512, 3) -> {dtype}, mixed flags",
+              libs["normalize_aug.cu"], entry, imgs, out, call)
+    del imgs
 
 
 def time_enqueue(dev, gen) -> None:
@@ -1372,6 +1496,7 @@ def main() -> int:
     ui, us = check_kernels(dev, gen)
     ub, nf = check_training_kernels(dev, gen)
     sweep_bwd_tiles(dev, gen)
+    sweep_ingest_kernels(dev, gen)
     time_enqueue(dev, gen)
     cm, cds = check_bn_kernels(dev, gen)
     sweep_bn_layout(dev, gen)

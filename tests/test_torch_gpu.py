@@ -101,6 +101,11 @@ def test_gpu_upsample_int_refuses_strided_input():
         U.upsample_int(x.permute(0, 2, 1, 3), 2)
 
 
+# Earlier cases; a downsample; output widths that are not a multiple of 4
+# (the scalar stores); an output wider than one 512-column tile; a tile
+# whose input span does not fit the staged rows in shared memory (20x
+# downsample of 2000 columns: the unstaged instance); both path shapes; and
+# 65,536 masks (more than a grid dimension's 65,535).
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,out_hw,dtype", [
     ((3, 16, 16), (64, 64), torch.float32),
@@ -108,8 +113,17 @@ def test_gpu_upsample_int_refuses_strided_input():
     ((2, 4, 8, 8), (32, 32), torch.float32),
     ((2, 3, 12, 10), (37, 25), torch.float32),
     ((8, 20, 128, 128), (512, 512), torch.bfloat16),
+    ((2, 3, 40, 40), (16, 24), torch.float32),
+    ((2, 3, 40, 40), (16, 24), torch.bfloat16),
+    ((3, 7, 9), (20, 30), torch.bfloat16),
+    ((2, 16, 200), (40, 1100), torch.float32),
+    ((1, 4, 2000), (8, 100), torch.bfloat16),
+    ((20, 128, 128), (512, 512), torch.float32),
+    ((65536, 2, 2), (4, 4), torch.float32),
 ])
 def test_gpu_upsample_sigmoid_kernel_matches_plain(rng, shape, out_hw, dtype):
+    """Within 1e-5 of the plain version, and two launches bit for bit
+    equal."""
     dev = _cuda()
     x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3).to(
         dev, dtype)
@@ -120,6 +134,26 @@ def test_gpu_upsample_sigmoid_kernel_matches_plain(rng, shape, out_hw, dtype):
     want = S.upsample_sigmoid_reference(x, out_hw)
     assert got.dtype == torch.float32 and got.shape == want.shape
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(S.upsample_sigmoid(x, out_hw), got), "launches differ"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mag", [100.0, 1e4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_upsample_sigmoid_saturates(rng, mag, dtype):
+    """Logits of +-mag: no NaN, within 1e-5 of the plain version, and
+    exactly 1 and 0 in masks of one sign (every blended value is +-mag)."""
+    dev = _cuda()
+    signs = np.sign(rng.randn(6, 16, 16)).astype(np.float32)
+    signs[:2] = 1.0
+    signs[2:4] = -1.0
+    x = torch.from_numpy(signs * np.float32(mag)).to(dev, dtype)
+    got = S.upsample_sigmoid(x, (64, 64))
+    torch.cuda.synchronize()
+    assert not got.isnan().any()
+    torch.testing.assert_close(got, S.upsample_sigmoid_reference(x, (64, 64)),
+                               atol=1e-5, rtol=0)
+    assert bool((got[:2] == 1.0).all()) and bool((got[2:4] == 0.0).all())
 
 
 # (N, f*h, f*w, C) cotangents of the backward: earlier cases; for each f, h
@@ -204,11 +238,17 @@ def test_gpu_upsample_int_backward_refuses_other_dtypes():
 @pytest.mark.parametrize("n,hw,flags", [
     (4, (16, 16), "mixed"), (3, (8, 12), "zeros"), (5, (7, 9), "ones"),
     (1, (5, 5), "ones"), (16, (512, 512), "mixed"), (7, (33, 64), "mixed"),
+    *((n, hw, flags) for n, hw in ((3, (5, 16)), (4, (3, 48)), (2, (4, 528)))
+      for flags in ("zeros", "ones", "mixed")),
+    (3, (4, 12), "mixed"), (2, (5, 9), "mixed"),
+    (65536, (1, 1), "mixed"),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gpu_normalize_and_flip_kernel_matches_plain(rng, n, hw, flags, dtype):
-    """Flags all 0, all 1 and mixed; odd N; image sizes whose element count
-    is not a multiple of the 16-byte vector (the kernel's scalar path)."""
+    """Flags all 0, all 1 and mixed; odd N; widths that are a multiple of
+    the kernel's 16-pixel run (one, three and 33 runs a row: the vector
+    path) and widths that are not (12, 9, 7, 5: the scalar path); 65,536
+    images (more than a grid dimension's 65,535)."""
     dev = _cuda()
     imgs = torch.from_numpy((rng.rand(n, *hw, 3) * 256).astype(np.uint8)).to(dev)
     flip = {"zeros": np.zeros(n), "ones": np.ones(n),
@@ -221,6 +261,22 @@ def test_gpu_normalize_and_flip_kernel_matches_plain(rng, n, hw, flags, dtype):
     assert N.normalize_and_flip.launches == n0 + 1
     want = N.normalize_and_flip_reference(imgs, flip, mean, std, dtype)
     assert got.dtype == dtype and got.shape == imgs.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gpu_normalize_and_flip_misaligned_view(rng, dtype):
+    """A contiguous view that starts off a 16-byte boundary takes the
+    scalar path, bit-exact."""
+    dev = _cuda()
+    n, h, w = 3, 4, 32
+    flat = torch.from_numpy((rng.rand(n * h * w * 3 + 1) * 256).astype(
+        np.uint8)).to(dev)
+    imgs = flat[1:].view(n, h, w, 3)
+    flip = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    got = N.normalize_and_flip(imgs, flip, out_dtype=dtype)
+    want = N.normalize_and_flip_reference(imgs, flip, out_dtype=dtype)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 

@@ -88,6 +88,8 @@ def test_upsample_int_rejects_what_the_kernel_cannot_take(bad):
     ((2, 4, 8, 8), (32, 32), "float32"),
     ((2, 3, 12, 10), (40, 25), "float32"),
     ((3, 8, 8), (8, 8), "float32"),
+    ((2, 3, 40, 40), (16, 24), "float32"),
+    ((3, 7, 9), (20, 30), "bfloat16"),
 ])
 def test_upsample_sigmoid_reference_matches_jax_kernel(rng, shape, out_hw,
                                                        dtype):
@@ -178,6 +180,7 @@ _NORM_DTYPES = {"float32": (jnp.float32, torch.float32),
     ((3, 5, 7, 3), (1, 0, 1)),
     ((2, 16, 32, 3), (1, 1)),
     ((1, 4, 4, 3), (0,)),
+    ((3, 4, 48, 3), (1, 0, 1)),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_normalize_and_flip_reference_matches_jax(rng, shape, flags, dtype):
