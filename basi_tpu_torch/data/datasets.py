@@ -42,6 +42,10 @@ class SyntheticDataset:
     letterboxed down (bilinear image, centre-convention nearest masks,
     top-left zero pad)."""
 
+    # Version of the scene generator (``_dims``, ``_scene``): part of the
+    # native-GT cache key, so raise it whenever the scenes change.
+    SCENE_VERSION = 1
+
     def __init__(self, n: int = 256, image_size: int = 512,
                  max_instances: int = 8, seed: int = 0,
                  orig_max_scale: float = 1.0):

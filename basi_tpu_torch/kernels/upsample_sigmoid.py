@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from basi_tpu_torch.kernels import _build
-from basi_tpu_torch.ops.resize import _interp_matrix
+from basi_tpu_torch.ops.resize import interp_tensor
 
 _ENTRY = {torch.float32: "basi_upsample_sigmoid_f32",
           torch.bfloat16: "basi_upsample_sigmoid_bf16"}
@@ -58,8 +58,8 @@ def upsample_sigmoid_reference(logits: torch.Tensor,
     lead, (h, w) = logits.shape[:-2], logits.shape[-2:]
     oh, ow = out_hw
     dev = logits.device
-    wh = torch.from_numpy(_interp_matrix(h, oh, False)).to(dev)
-    ww = torch.from_numpy(_interp_matrix(w, ow, False)).to(dev)
+    wh = interp_tensor(h, oh, False, dev)
+    ww = interp_tensor(w, ow, False, dev)
     x = logits.reshape(-1, h, w).float()
     y = torch.einsum("oh,bhw->bow", wh, x)
     y = torch.einsum("pw,bow->bop", ww, y)

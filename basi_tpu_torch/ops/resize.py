@@ -45,6 +45,17 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarr
     return w.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def interp_tensor(in_size: int, out_size: int, align_corners: bool,
+                  device: torch.device) -> torch.Tensor:
+    """``_interp_matrix`` as an f32 tensor on ``device``, copied there once:
+    a copy from pageable host memory would wait for the device's queue on
+    every call. Made outside inference mode, so autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            _interp_matrix(in_size, out_size, align_corners)).to(device)
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
                     align_corners: bool = False) -> torch.Tensor:
     """Bilinear-resize NHWC (or HWC / HW) ``x`` to spatial size ``out_hw``."""
@@ -87,8 +98,8 @@ def _resize_einsum(x: torch.Tensor, out_hw: tuple[int, int],
     an NHWC-contiguous tensor."""
     _, h, w, _ = x.shape
     oh, ow = out_hw
-    wh = torch.from_numpy(_interp_matrix(h, oh, align_corners)).to(x.device)
-    ww = torch.from_numpy(_interp_matrix(w, ow, align_corners)).to(x.device)
+    wh = interp_tensor(h, oh, align_corners, x.device)
+    ww = interp_tensor(w, ow, align_corners, x.device)
     y = torch.einsum("oh,nhwc->nowc", wh, x.float())
     y = torch.einsum("pw,nowc->nopc", ww, y)
     return y.to(x.dtype).contiguous()

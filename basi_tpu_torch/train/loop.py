@@ -4,16 +4,17 @@
 numpy only), the model in train mode from seeded weights, the schedule, the
 state and the step; ``train(max_steps=None)`` runs the epochs and logs a
 ``[train]`` record (step, epoch, lr, step_ms, imgs_per_s and the step's
-metrics) every ``train.log_every`` steps and at the last one.
+metrics) every ``train.log_every`` steps and at the last one. After each
+epoch it evaluates on the val split (``evaluate``: the EMA weights when
+the state has them, with the live BatchNorm running statistics) and logs
+a ``[val]`` record.
 
 The host feed runs on a thread: it assembles each batch (``iter_epoch``,
 shuffled by ``train.seed + epoch``), bit-packs the masks, copies the arrays
 into pinned memory and starts a non-blocking copy to the device on a side
 stream, a bounded queue ahead of the step; the step's stream waits for the
 copy's event. Settings outside the slice raise
-``NotImplementedError`` (``train.state.check_train_config``), and so does
-the per-epoch evaluation: eval is not ported yet, so a run reaches the end
-of an epoch only when ``max_steps`` stops it there.
+``NotImplementedError`` (``train.state.check_train_config``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from basi_tpu_torch.config import Config
 from basi_tpu_torch.data.datasets import iter_epoch, make_dataset
 from basi_tpu_torch.data.transforms import pack_masks_host
 from basi_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from basi_tpu_torch.infer import Inferencer
 from basi_tpu_torch.models.basi import create_model
 from basi_tpu_torch.train.state import (
     check_train_config,
@@ -132,6 +134,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg.model)
         self.dataset = make_dataset(cfg.data, split="train")
+        self.val_dataset = make_dataset(cfg.data, split="val")
+        self._inferencer: Inferencer | None = None
         self.feed = HostFeed(self.dataset, cfg.data.batch_size,
                              cfg.train.seed, self.device,
                              pack_masks=cfg.data.pack_masks,
@@ -157,7 +161,8 @@ class Trainer:
 
     def train(self, max_steps: int | None = None) -> dict:
         """Run until the configured epochs end, or ``max_steps`` steps in
-        total; returns the last ``[train]`` record."""
+        total. Returns the last ``[train]`` record; after a whole epoch,
+        updated with that epoch's eval metrics."""
         cfg = self.cfg
         stop_at = self.max_steps if max_steps is None else min(max_steps,
                                                                self.max_steps)
@@ -185,10 +190,33 @@ class Trainer:
                     t0, since = time.perf_counter(), 0
                 if max_steps is not None and step >= stop_at:
                     return last
-            self.evaluate()  # the JAX loop evaluates after every epoch
+            eval_metrics = self.evaluate()  # after every epoch, as JAX's
+            print("[val] " + json.dumps({"epoch": epoch, **eval_metrics}),
+                  flush=True)
+            last = {**last, **eval_metrics}
         return last
 
-    def evaluate(self) -> dict:
-        raise NotImplementedError(
-            "per-epoch evaluation not yet ported; pass train(max_steps=...) "
-            "to stop before an epoch ends")
+    def eval_state_dict(self, use_ema: bool | None = None) -> dict:
+        """The model's state dict with the EMA in the params' places
+        (``use_ema``; by default whenever the state has an EMA) and the
+        live BatchNorm running statistics."""
+        if use_ema is None:
+            use_ema = self.state.ema is not None
+        sd = {k: v.detach() for k, v in self.state.model.state_dict().items()}
+        if use_ema:
+            sd.update(self.state.ema)
+        return sd
+
+    def evaluate(self, max_batches: int = 0,
+                 use_ema: bool | None = None) -> dict:
+        """``Inferencer.evaluate`` on the val split with the weights of
+        ``eval_state_dict``. One ``Inferencer`` is built on first use and
+        takes the new weights on later calls."""
+        sd = self.eval_state_dict(use_ema)
+        if self._inferencer is None:
+            self._inferencer = Inferencer(self.cfg, device=self.device,
+                                          state_dict=sd)
+        else:
+            self._inferencer.set_weights(state_dict=sd)
+        return self._inferencer.evaluate(self.val_dataset,
+                                         max_batches=max_batches)

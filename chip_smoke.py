@@ -12,11 +12,13 @@
    kernel so that no host time counts), all cold: each input rotates
    through copies larger than twice the L2 cache, and the plain version
    and the library call read the same copies:
-   ``upsample_int`` within 1 bf16 ulp and its backward
-   within 1 bf16 ulp plus 2^-20 of the largest value (cancelling f32 sums)
-   and bit for bit over two launches, ``upsample_sigmoid`` within 1e-5 and
+   ``upsample_int`` within 1 bf16 ulp (at batch 8, timed, and at the
+   eval batch of 16) and its backward
+   within 1 bf16 ulp plus 2^-20 of the largest value (cancelling f32 sums),
+   each bit for bit over two launches, ``upsample_sigmoid`` within 1e-5 and
    bit for bit over two launches (bf16 and f32 in, per served answer and
-   per eval batch), ``normalize_and_flip`` bit-exact (bf16 and f32 out,
+   per eval batch of 8 and of 16), ``normalize_and_flip`` bit-exact (bf16
+   and f32 out,
    mixed flip flags), each of these two beside its bound and its output's
    write floor (``y.zero_()`` of the same size, device time), and
    ``torch.autograd.grad`` through ``resize_bilinear`` on the kernel
@@ -84,6 +86,29 @@
 6. f32 step, card vs CPU: one train step of the tiny config (TF32 off) from
    the same weights and batch, for ``bn_impl`` xla and fused; loss and
    every gradient agree within 1e-3.
+7. Evaluation: ``Inferencer.evaluate`` of ``bench_accuracy`` at full width
+   in the original frame (``infer.ap_at_original=true``; square originals,
+   ``data.synthetic_orig_scale=1.0``: the card has no PIL), 64 val images
+   in 4 batches of 16, bf16, seeded weights; with the disk native-GT cache
+   built beforehand in a temporary directory (the val set's packed GT on
+   the device), once with ``infer.wf`` off and once on, then on without
+   the cache. Each run:
+   every metric finite, 64 images, 9 ``upsample_int`` and 1
+   ``upsample_sigmoid`` launch per batch and nothing else; without the
+   cache the same metrics. Prints the metrics, ``infer_ms_per_batch``,
+   ``imgs_per_s`` and the wall clock per batch, then one batch traced by
+   ``torch.profiler``: device ms by eval class (forward, selection,
+   ``upsample_sigmoid``, IoU, paste, the SOD suite, the EDT) and the busy
+   share. Then one f32 batch of 4 evaluated on the card and on the CPU
+   (saliency means within 1e-4, AP/AR equal, full-resolution masks within
+   1e-4, pixels binarized apart only that close to the threshold, every
+   IoU of both frames within 1e-5 plus its slot's pixels binarized apart
+   over its union, AP at IoU 0.02-0.2 equal and not 0);
+   the paste (1e-6) and the SOD suite (1e-5) card against CPU at
+   non-square extents on a 768 x 896 canvas; and a full-width ``Trainer``
+   (no device given) whose ``train()`` runs its one epoch to the end and
+   prints a ``[val]`` record of 8 images equal to ``Inferencer.evaluate``
+   on the state's EMA weights.
 
 Any failure raises and exits non-zero; so does a machine without CUDA or
 a directory without the package. The line before the last is the
@@ -196,11 +221,18 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
+def _bf16_ulp(want: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp (8 significant bits) at each value of f64 ``want``,
+    2^(floor(log2 |want|) - 7), built from its exponent bits: ``2.0 ** e``
+    in f64 on the card can come out one f64 ulp below the power of two."""
+    _, e = torch.frexp(want.abs().clamp_min(2.0 ** -126))
+    return ((e.to(torch.int64) + (1023 - 8)) << 52).view(torch.float64)
+
+
 def _bf16_ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
     """Every value within 1 bf16 ulp (8 significant bits) of ``want``."""
     want = want.double()
-    ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
-    return bool(((got.double() - want).abs() <= ulp).all())
+    return bool(((got.double() - want).abs() <= _bf16_ulp(want)).all())
 
 
 def _bf16_sum_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -209,9 +241,8 @@ def _bf16_sum_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
     the rounding of the f32 sums (which another summation order places
     elsewhere) is larger than an ulp of the small result."""
     want = want.double()
-    ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
     slack = 2.0 ** -20 * float(want.abs().max())
-    return bool(((got.double() - want).abs() <= ulp + slack).all())
+    return bool(((got.double() - want).abs() <= _bf16_ulp(want) + slack).all())
 
 
 def _require(cond: bool, what: str) -> None:
@@ -222,6 +253,25 @@ def _require(cond: bool, what: str) -> None:
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     """The NCHW view of an NHWC-contiguous tensor (channels_last)."""
     return x.permute(0, 3, 1, 2)
+
+
+def _check_upsample_int(x, f: int) -> float:
+    """``upsample_int`` of bf16 ``x`` within 1 bf16 ulp of its plain
+    version and bit for bit equal over two launches; its largest
+    difference."""
+    from basi_tpu_torch.kernels.upsample_int import (
+        upsample_int,
+        upsample_int_reference,
+    )
+
+    got, again = upsample_int(x, f), upsample_int(x, f)
+    want = upsample_int_reference(x, f)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    what = f"upsample_int {tuple(x.shape)} x{f}"
+    _require(_bf16_ulp_ok(got, want), f"{what}: beyond 1 bf16 ulp (max {err})")
+    _require(torch.equal(got, again), f"{what}: two launches differ")
+    return err
 
 
 def check_kernels(dev, gen):
@@ -247,11 +297,8 @@ def check_kernels(dev, gen):
     for shape, f in shapes:
         xs = _copies(torch.randn(shape, generator=gen).to(dev, torch.bfloat16))
         x, args = xs[0], [(x, f) for x in xs]
-        got, want = upsample_int(x, f), upsample_int_reference(x, f)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        _require(_bf16_ulp_ok(got, want),
-                 f"upsample_int {shape} x{f}: beyond 1 bf16 ulp (max {err})")
+        err = _check_upsample_int(x, f)
+        n_out = x.numel() * f * f
         ms = _time_cold_ms(upsample_int, args)
         dev_ms = _device_ms(upsample_int, args)
         plain = _time_cold_ms(upsample_int_reference, args)
@@ -267,10 +314,18 @@ def check_kernels(dev, gen):
         ui["plain_ms"] += plain
         ui["library_ms"] += lib
         ui["max_abs_err"] = max(ui["max_abs_err"], err)
-        ui["bytes"] += 2 * (x.numel() + got.numel())
-        ui["flops"] += 7 * got.numel()  # 4 taps: 4 mul + 3 add per output
+        ui["bytes"] += 2 * (x.numel() + n_out)
+        ui["flops"] += 7 * n_out  # 4 taps: 4 mul + 3 add per output
+    # the forward of an eval (and training) batch of 16: checked, not timed
+    for shape, f in TRAIN_RESIZES:
+        x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        err = _check_upsample_int(x, f)
+        ui["max_abs_err"] = max(ui["max_abs_err"], err)
+    print("upsample_int at the nine shapes of a batch of 16: within 1 bf16 "
+          "ulp, repeats bit for bit")
 
-    # Per served answer (20 slots) and per eval batch (8 x 20); the serving
+    # Per served answer (20 slots) and per eval batch (8 x 20 at the
+    # default infer.batch_size, 16 x 20 under bench_accuracy); the serving
     # path hands it bf16 slot masks, and f32 input is checked too.
     us = {"max_abs_err": 0.0, "library_ms": None}
     for shape in SIGMOID_SHAPES:
@@ -305,14 +360,15 @@ def check_kernels(dev, gen):
                   f"({100 * bound / dev_ms:.0f}% on the device), write "
                   f"floor {floor:.4f} ms (y.zero_(), device)")
             us["max_abs_err"] = max(err, us["max_abs_err"])
-            if len(shape) == 4:  # the eval batch in bf16 (last) is recorded
+            if shape == SIGMOID_RECORDED:  # in bf16 (last) it is recorded
                 us.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                           bytes=nbytes, flops=flops)
     return ui, us
 
 
-# (input NHWC, factor) of the nine bf16 resizes of a training forward at
-# batch 16 and 512^2: FPN x3, saliency towers x3, mask features x3.
+# (input NHWC, factor) of the nine bf16 resizes of a training or eval
+# forward at batch 16 and 512^2: FPN x3, saliency towers x3, mask
+# features x3.
 TRAIN_RESIZES = [((16, 16, 16, 256), 2), ((16, 32, 32, 256), 2),
                  ((16, 64, 64, 256), 2), ((16, 64, 64, 64), 2),
                  ((16, 32, 32, 64), 4), ((16, 16, 16, 64), 8),
@@ -611,9 +667,12 @@ def check_bn_kernels(dev, gen):
     return recs["channel_moments"], recs["channel_dual_sums"]
 
 
-# (masks, h, w) of upsample_sigmoid's two calls on the path: the slots of
-# one served answer and of an eval batch of 8 images, to 512^2
-SIGMOID_SHAPES = [(20, 128, 128), (8, 20, 128, 128)]
+# (masks, h, w) of upsample_sigmoid's calls on the path, to 512^2: the
+# slots of one served answer, of an eval batch at the default
+# infer.batch_size (8) and of one under bench_accuracy (16); the times of
+# the batch of 8 go into the kernels line
+SIGMOID_SHAPES = [(20, 128, 128), (8, 20, 128, 128), (16, 20, 128, 128)]
+SIGMOID_RECORDED = (8, 20, 128, 128)
 
 # the sweep's variants of csrc/bn_stats.cu: (name, ((text replaced, by
 # what), ...))
@@ -1469,6 +1528,358 @@ def check_f32_step(dev, bn_impl: str):
                                    msg=lambda m, k=k: f"f32 step grad {k}: {m}")
 
 
+# Phase 7: evaluation at full width. The card has no PIL, which
+# letterboxes non-square scenes: the originals are square there.
+EVAL_OVERRIDES = ["data.synthetic_orig_scale=1.0", "data.synthetic_n=256",
+                  "infer.ap_at_original=true"]
+EVAL_IMAGES = 64  # the val split of synthetic_n=256
+TIMING_KEYS = ("infer_ms_per_batch", "imgs_per_s")
+# torch.profiler ranges of the eval program, by class; the EDT (the
+# weighted F's distance transform) is a range inside the SOD suite's
+EVAL_CLASSES = [("forward", "eval.forward"), ("selection", "eval.selection"),
+                ("upsample_sigmoid", "eval.upsample_sigmoid"),
+                ("IoU", "eval.iou"), ("paste", "eval.paste"),
+                ("SOD suite (EDT aside)", "eval.sod"), ("EDT", "eval.edt")]
+
+
+def _metrics_only(m: dict) -> dict:
+    return {k: v for k, v in m.items() if k not in TIMING_KEYS}
+
+
+def run_eval(dev, gen) -> dict:
+    """Phase 7: ``Inferencer.evaluate`` of ``bench_accuracy`` at full width
+    in the original frame (``EVAL_OVERRIDES``), 64 val images in 4 batches
+    of 16, bf16, with the disk native-GT cache built beforehand
+    (device-resident GT), once with ``infer.wf`` off and once on, then on
+    without the cache (GT drawn per batch): every metric finite, 64 images, 9 ``upsample_int`` and 1
+    ``upsample_sigmoid`` launches per batch, nothing else, and the same
+    metrics without the cache. Then one batch under ``torch.profiler``.
+    Returns the seeded weights it evaluated."""
+    import shutil
+    import tempfile
+
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.data.datasets import make_dataset
+    from basi_tpu_torch.data.native_gt import NativeGTCache
+    from basi_tpu_torch.infer import Inferencer
+
+    gt_dir = tempfile.mkdtemp(prefix="basi_native_gt_")
+    try:
+        results, sd = {}, None
+        cfg = get_config("bench_accuracy", EVAL_OVERRIDES)
+        t0 = time.perf_counter()
+        NativeGTCache(make_dataset(cfg.data, split="val"), gt_dir)
+        print(f"native-GT cache of the {EVAL_IMAGES} val images built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        # wf off first: it also pays the first eval's set-up
+        for wf, cache in (("false", gt_dir), ("true", gt_dir), ("true", "")):
+            cfg = get_config("bench_accuracy", EVAL_OVERRIDES + [
+                f"infer.wf={wf}", f"infer.native_gt_cache={cache}"])
+            if sd is None:
+                sd = smoke_weights(cfg, gen)
+            inf = Inferencer(cfg, state_dict=sd)  # the default device
+            _require(inf.device == dev, f"Inferencer ran on {inf.device}")
+            ds = make_dataset(cfg.data, split="val")
+            _zero_kernel_counts()
+            t0 = time.perf_counter()
+            m = inf.evaluate(ds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _kernel_counts()
+            n_b = EVAL_IMAGES // cfg.infer.batch_size
+            print(f"evaluate, bench_accuracy original frame, wf={wf}, "
+                  f"native_gt_cache={'on' if cache else 'off'}: "
+                  f"{m['num_images']} images in {n_b} batches of "
+                  f"{cfg.infer.batch_size} ({cfg.model.dtype}) in "
+                  f"{wall:.3f} s = {1000 * wall / n_b:.1f} ms/batch "
+                  f"({EVAL_IMAGES / wall:.1f} imgs/s, host feed and first-"
+                  f"batch set-up included); infer_ms_per_batch "
+                  f"{m['infer_ms_per_batch']}, imgs_per_s {m['imgs_per_s']}; "
+                  f"launches per batch "
+                  f"{ {k: v / n_b for k, v in launches.items() if v} }")
+            print(f"  metrics {json.dumps(_metrics_only(m))}")
+            _require(m["num_images"] == EVAL_IMAGES,
+                     f"evaluate saw {m['num_images']} images")
+            _require(all(np.isfinite(v) for v in m.values()),
+                     "a non-finite eval metric")
+            _require(("saliency_wF" in m) == (wf == "true"),
+                     "saliency_wF present iff infer.wf")
+            _require(launches == dict(_zero_counts(), upsample_int=9 * n_b,
+                                      upsample_sigmoid=n_b),
+                     f"expected 9 upsample_int and 1 upsample_sigmoid launch "
+                     f"per eval batch x {n_b}, nothing else; got {launches}")
+            results[(wf, bool(cache))] = (inf, ds, m)
+        _require(_metrics_only(results[("true", False)][2])
+                 == _metrics_only(results[("true", True)][2]),
+                 "evaluate without the native-GT cache gave other metrics")
+        print("evaluate without the native-GT cache: the same metrics")
+        inf, ds, _ = results[("true", True)]
+        profile_eval_batch(inf, ds)
+        del results, inf
+    finally:
+        shutil.rmtree(gt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return sd
+
+
+def profile_eval_batch(inf, ds) -> None:
+    """Phase 7: one eval batch (the first val batch, assembled on the host
+    beforehand) from upload to the fetched outputs, timed with the host
+    clock, then traced: device ms by eval class (``torch.profiler``
+    ranges) and the device's busy share of the batch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from basi_tpu_torch.data.datasets import iter_epoch
+    from basi_tpu_torch.data.transforms import pack_masks_host
+
+    bs = inf.cfg.infer.batch_size
+    batch = next(iter_epoch(ds, bs, shuffle=False, seed=0, drop_last=False))
+    host = [batch["image"], pack_masks_host(batch["masks"]), batch["valid"],
+            batch["valid_hw"]]
+
+    def one():
+        res, full, sal = inf._eval_batch(*(inf._upload(a) for a in host))
+        res.update(inf._orig_frame_eval(full, sal, batch, ds))
+        del full, sal
+        return {k: v.cpu() for k, v in res.items()}
+
+    with torch.inference_mode():
+        one()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            wall_prof = (time.perf_counter() - t0) * 1e3
+    # Each kernel goes to the innermost eval range whose span on the
+    # device (the range's GPU annotation) holds its start: one stream, so
+    # the spans nest as the ranges do.
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.name.startswith("eval.")]
+    by_range: dict = {}
+    for e in events:
+        if e.name.startswith("eval.") or "#" in e.name:
+            continue
+        t = e.time_range.start
+        inside = [sp for sp in spans if sp[0] <= t < sp[1]]
+        key = (min(inside, key=lambda sp: sp[1] - sp[0])[2] if inside
+               else "outside the ranges")
+        by_range[key] = by_range.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    wall, device = min(walls), sum(by_range.values())
+    print(f"one eval batch ({bs} images, original frame, wf on; upload to "
+          f"fetched outputs): {' '.join(f'{w:.2f}' for w in walls)} ms "
+          f"(profiler off), {wall_prof:.2f} ms traced; device {device:.3f} ms "
+          f"(busy {100 * device / wall:.1f}% of {wall:.2f} ms), by class:")
+    names = dict((key, name) for name, key in EVAL_CLASSES)
+    for key, ms in sorted(by_range.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:9.3f} ms  {names.get(key, key)}")
+    _require(device > 0, "the profiler saw no device time in an eval batch")
+
+
+def _iou_bound(p_d, p_c, gt_areas):
+    """Per (image, slot, GT) bound on the IoU gap between masks binarized
+    on two devices, ``p_d`` and ``p_c`` (N, K, H, W) bool, against GT of
+    ``gt_areas`` (N, M) pixels: each of a slot's d pixels that binarize
+    apart moves its IoU by at most 1 / union, and no union on the way
+    from one mask to the other (pixels added first) is below the larger of
+    the GT's area and the smaller mask's area; plus 1e-5 for the f32
+    division. Returns (bound (N, K, M), d (N, K))."""
+    d = (p_d != p_c).sum(dim=(-2, -1)).double()
+    small = torch.minimum(p_d.sum(dim=(-2, -1)), p_c.sum(dim=(-2, -1)))
+    union = torch.maximum(gt_areas.double()[:, None, :],
+                          small.double()[:, :, None]).clamp(min=1.0)
+    return d[:, :, None] / union + 1e-5, d
+
+
+def check_eval_f32(dev, sd) -> None:
+    """Phase 7, card against CPU in f32: one batch of 4 through
+    ``evaluate(max_batches=1)`` on each: saliency means within 1e-4, AP/AR
+    equal. The batch's full-resolution masks agree within 1e-4, and pixels
+    binarize apart only within that difference of ``mask_threshold`` (in
+    the letterbox and, pasted, in the original frame). Every IoU of both
+    frames is within 1e-5 plus its slot's own count of pixels binarized
+    apart over the pair's union (``_iou_bound``). The random weights reach
+    no COCO threshold (AP and AR read 0 on both), so AP at IoU 0.02-0.2 is
+    also taken of both devices' IoU matrices and must be equal and not 0."""
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.data.datasets import iter_epoch, make_dataset
+    from basi_tpu_torch.data.transforms import pack_masks_host
+    from basi_tpu_torch.evals.ap import APAccumulator
+    from basi_tpu_torch.infer import Inferencer, _canvas_side
+    from basi_tpu_torch.ops.paste import paste_masks_batch
+
+    cfg = get_config("bench_accuracy", EVAL_OVERRIDES + [
+        "infer.batch_size=4", "model.dtype=float32", "infer.dtype=float32",
+        "infer.native_gt_cache="])
+    thr, size = cfg.infer.mask_threshold, cfg.model.image_size
+    ds = make_dataset(cfg.data, split="val")
+    batch = next(iter_epoch(ds, 4, shuffle=False, seed=0, drop_last=False))
+    host = [batch["image"], pack_masks_host(batch["masks"]), batch["valid"],
+            batch["valid_hw"]]
+    canvas = tuple(_canvas_side(int(batch["orig_hw"][:, a].max()), size)
+                   for a in (0, 1))
+    out = []
+    for device in (dev, "cpu"):
+        inf = Inferencer(cfg, device=device, state_dict=sd)
+        m = inf.evaluate(ds, max_batches=1)
+        with torch.inference_mode():
+            res, full, sal = inf._eval_batch(*(inf._upload(a) for a in host))
+            orig = inf._orig_frame_eval(full, sal, batch, ds)
+            pasted = paste_masks_batch(full, inf._upload(batch["valid_hw"]),
+                                       canvas, inf._upload(batch["orig_hw"]))
+        out.append({"m": m, "scores": res["scores"].cpu(),
+                    "iou": [res["iou"].cpu(), orig["iou"].cpu()],
+                    "areas": [res["areas"].cpu(), orig["areas"].cpu()],
+                    "probs": [full.cpu(), pasted.cpu()]})
+        del inf, res, full, sal, orig, pasted
+    card, cpu = out
+    m_d, m_c = card["m"], cpu["m"]
+    sal_err = max(abs(m_d[k] - m_c[k]) for k in m_c if k.startswith("saliency"))
+    full_err = float((card["probs"][0] - cpu["probs"][0]).abs().max())
+    _require(set(m_d) == set(m_c) and m_d["num_images"] == 4,
+             "card and CPU give other metric keys")
+    _require(sal_err <= 1e-4, "f32 eval: a saliency metric beyond 1e-4")
+    _require(all(m_d[k] == m_c[k] for k in m_c if k[:2] in ("AP", "AR", "mA")),
+             "f32 eval: AP/AR differ between card and CPU")
+    _require(full_err <= 1e-4, "f32 eval: full-resolution masks beyond 1e-4")
+    valid = batch["valid"]
+    for f, frame in enumerate(("letterbox", "original frame")):
+        p_d, p_c = card["probs"][f], cpu["probs"][f]
+        err = float((p_d - p_c).abs().max())
+        apart = (p_d > thr) != (p_c > thr)
+        near = bool(((p_c[apart] - thr).abs() <= err).all())
+        bound, d = _iou_bound(p_d > thr, p_c > thr, cpu["areas"][f])
+        gap = (card["iou"][f].double() - cpu["iou"][f].double()).abs()
+        aps = []
+        for side in (card, cpu):
+            acc = APAccumulator(thresholds=(0.02, 0.05, 0.1, 0.2))
+            for i in range(4):
+                acc.add(side["scores"][i].numpy(), side["iou"][f][i].numpy(),
+                        valid[i], gt_areas=side["areas"][f][i].numpy())
+            aps.append(acc.ap())
+        print(f"f32 eval card vs cpu, {frame} (1 batch of 4): masks max diff "
+              f"{err:.2e}, {int(apart.sum())} pixels in {int((d > 0).sum())} "
+              f"of {d.numel()} slots binarize apart (all within it of the "
+              f"threshold: {near}); IoU max diff {float(gap.max()):.2e}, "
+              f"largest share of its bound {float((gap / bound).max()):.3f}, "
+              f"over slots binarized alike "
+              f"{float((gap * (d == 0)[..., None]).max()):.2e} "
+              f"(largest IoU {float(cpu['iou'][f].max()):.4f}); AP at low "
+              f"IoU, card {aps[0]}")
+        _require(near, f"f32 eval, {frame}: pixels binarized apart away from "
+                 "the threshold")
+        _require(bool((gap <= bound).all()),
+                 f"f32 eval, {frame}: an IoU beyond 1e-5 plus its slot's "
+                 "pixels binarized apart over its union")
+        _require(aps[0] == aps[1], f"f32 eval, {frame}: AP at low IoU "
+                 f"differs, card {aps[0]} cpu {aps[1]}")
+        _require(any(v > 0 for v in aps[0].values()),
+                 f"f32 eval, {frame}: AP at low IoU is 0, checks nothing")
+    print(f"f32 evaluate card vs cpu: saliency max diff {sal_err:.2e}; card "
+          f"{json.dumps(_metrics_only(m_d))}")
+
+
+def check_paste_sod(dev, gen) -> None:
+    """Phase 7: the paste and the SOD suite on the card against the CPU at
+    non-square extents, made directly: 4 images of 20 slots at 512^2, each
+    with its own valid and original extent, onto a 768 x 896 canvas;
+    the paste within 1e-6 and every metric within 1e-5."""
+    from basi_tpu_torch.evals import saliency as SAL
+    from basi_tpu_torch.ops.paste import paste_masks_batch
+
+    canvas = (768, 896)
+    masks = torch.rand((4, 20, 512, 512), generator=gen)
+    sal = torch.rand((4, 1, 512, 512), generator=gen)
+    valid_hw = torch.tensor([[512, 366], [341, 512], [512, 452], [337, 512]],
+                            dtype=torch.int32)
+    orig_hw = torch.tensor([[700, 501], [480, 721], [768, 678], [591, 896]],
+                           dtype=torch.int32)
+    rng = np.random.RandomState(SEED)
+    yy, xx = np.mgrid[0:canvas[0], 0:canvas[1]]
+    union = np.zeros((4,) + canvas, np.float32)
+    for i, (oh, ow) in enumerate(orig_hw.tolist()):
+        for _ in range(3):
+            cy, cx = rng.randint(oh // 8, 7 * oh // 8), rng.randint(ow // 8, 7 * ow // 8)
+            ry, rx = rng.randint(oh // 16, oh // 5), rng.randint(ow // 16, ow // 5)
+            union[i][((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = 1.0
+    union = torch.from_numpy(union)
+    region = ((torch.arange(canvas[0])[None, :, None] < orig_hw[:, 0, None, None])
+              & (torch.arange(canvas[1])[None, None, :] < orig_hw[:, 1, None, None])
+              ).float()
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        with torch.inference_mode():
+            args = (valid_hw.to(device), canvas, orig_hw.to(device))
+            pasted = paste_masks_batch(masks.to(device), *args)
+            prob = paste_masks_batch(sal.to(device), *args)[:, 0]
+            u, r = union.to(device), region.to(device)
+            metrics = {name: getattr(SAL, name)(prob, u, valid=r).cpu()
+                       for name in ("f_measure_hist", "e_measure_hist",
+                                    "s_measure", "boundary_f_measure",
+                                    "weighted_f_measure")}
+        outs.append((pasted.cpu(), metrics))
+        del pasted, prob
+    (p_d, m_d), (p_c, m_c) = outs
+    paste_err = float((p_d - p_c).abs().max())
+    errs = {k: float((m_d[k] - m_c[k]).abs().max()) for k in m_c}
+    print(f"paste (4, 20, 512^2) -> {canvas} card vs cpu: max_abs_err "
+          f"{paste_err:.2e}; SOD suite max_abs_err "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; weighted F "
+          f"{[round(float(v), 4) for v in m_c['weighted_f_measure']]}")
+    _require(paste_err <= 1e-6, "paste: card vs CPU beyond 1e-6")
+    _require(max(errs.values()) <= 1e-5, "SOD suite: card vs CPU beyond 1e-5")
+
+
+def check_trainer_eval(dev) -> None:
+    """Phase 7: a full-width ``Trainer`` (no device given) runs its one
+    epoch (2 steps of 16) to the end, evaluates 8 val images and prints
+    ``[val]``; its metrics equal ``Inferencer.evaluate`` of the state's
+    EMA weights."""
+    import contextlib
+    import io
+
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.infer import Inferencer
+    from basi_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("bench_accuracy", ["data.synthetic_orig_scale=1.0",
+                                        "data.synthetic_n=32",
+                                        "train.epochs=1"])
+    trainer = Trainer(cfg)
+    _require(trainer.device == dev, f"Trainer ran on {trainer.device}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        last = trainer.train()
+    wall = time.perf_counter() - t0
+    sys.stdout.write(buf.getvalue())
+    val = [json.loads(line[len("[val] "):])
+           for line in buf.getvalue().splitlines() if line.startswith("[val] ")]
+    print(f"Trainer.train() with no max_steps: {trainer.state.step} steps "
+          f"and the epoch's eval in {wall:.2f} s")
+    _require(trainer.state.step == 2 and len(val) == 1
+             and val[0]["num_images"] == 8 and val[0]["epoch"] == 0,
+             f"expected 2 steps and one [val] record of 8 images, got "
+             f"{trainer.state.step} steps and {val}")
+    want = _metrics_only(Inferencer(cfg, state_dict=trainer.eval_state_dict())
+                         .evaluate(trainer.val_dataset))
+    _require({k: last[k] for k in want} == want,
+             f"the Trainer's eval {last} differs from Inferencer.evaluate "
+             f"on the EMA weights {want}")
+    print("the Trainer's per-epoch eval equals Inferencer.evaluate on the "
+          "EMA weights")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -1511,6 +1922,13 @@ def main() -> int:
     check_bn_impls_agree(dev)
     for impl in ("xla", "fused"):
         check_f32_step(dev, impl)
+    t0 = time.perf_counter()
+    eval_sd = run_eval(dev, gen)
+    check_eval_f32(dev, eval_sd)
+    del eval_sd
+    check_paste_sod(dev, gen)
+    check_trainer_eval(dev)
+    print(f"phase 7 (evaluation) took {time.perf_counter() - t0:.1f} s")
 
     # launches: each kernel's count over the path it serves, read right
     # after that path's run (upsample_int: the xla training path; the BN

@@ -21,6 +21,12 @@ in a fixed order); their BatchNorm epilogues within 1e-5 of each term's
 largest magnitude of the plain math on the same sums; ``FusedBatchNorm`` on
 the card within 1e-4 of the same module on the CPU. TF32 is off, so the
 plain versions' f32 matmuls run in full f32.
+
+Evaluation on the card against the CPU: the paste within 1e-6, each
+saliency metric within 1e-5 and the EDT bit for bit; the Gaussian and the
+weighted F-measure unchanged with both TF32 flags on; ``evaluate`` of the
+tiny config in f32 with saliency means within 1e-4 and AP/AR equal; one
+bf16 eval batch launches 9 ``upsample_int`` and 1 ``upsample_sigmoid``.
 """
 
 import numpy as np
@@ -601,3 +607,147 @@ def test_gpu_trainer_runs_on_the_default_card():
     assert all(t.device == trainer.device for t in batch.values())
     metrics = trainer.train_step(trainer.state, batch)
     assert np.isfinite(float(metrics["loss"]))
+
+
+# --- evaluation: paste, the saliency suite, Inferencer.evaluate ---------------
+
+def _tiny_eval_cfg(*overrides):
+    from basi_tpu_torch.config import get_config
+
+    return get_config("", [
+        "model.backbone=resnet_tiny", "model.fpn_channels=32",
+        "model.mask_channels=32", "model.grid_size=8", "model.num_slots=8",
+        "model.image_size=64", "data.image_size=64", "data.max_instances=4",
+        "data.batch_size=4", "data.synthetic_n=40", "infer.batch_size=4",
+        "infer.pre_nms_top_k=16", "infer.native_gt_cache=",
+        "infer.dtype=float32", "train.checkpoint_dir=", *overrides])
+
+
+def _sod_inputs(rng, n=3, h=96, w=112):
+    yy, xx = np.mgrid[0:h, 0:w]
+    gt = np.zeros((n, h, w), np.float32)
+    for i in range(n - 1):  # the last image's GT is empty
+        for _ in range(2):
+            cy, cx = rng.randint(5, h - 5), rng.randint(5, w - 5)
+            r = rng.randint(3, h // 4)
+            gt[i][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 1.0
+    pred = np.clip(gt * 0.7 + rng.rand(n, h, w) * 0.4, 0, 1).astype(np.float32)
+    valid = np.zeros((n, h, w), np.float32)
+    valid[:, :h - 11, :w - 6] = 1.0
+    return [torch.from_numpy(a) for a in (pred, gt, valid)]
+
+
+@pytest.mark.gpu
+def test_gpu_paste_matches_cpu(rng):
+    """Non-square valid and original extents on a 768 x 896 canvas: 1e-6."""
+    from basi_tpu_torch.ops.paste import paste_masks_batch
+
+    dev = _cuda()
+    masks = torch.from_numpy(rng.rand(3, 4, 128, 128).astype(np.float32))
+    valid = torch.tensor([[128, 91], [85, 128], [128, 128]], dtype=torch.int32)
+    orig = torch.tensor([[700, 501], [480, 722], [768, 896]], dtype=torch.int32)
+    want = paste_masks_batch(masks, valid, (768, 896), orig)
+    got = paste_masks_batch(masks.to(dev), valid.to(dev), (768, 896),
+                            orig.to(dev))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+
+
+SOD_METRICS = ["f_measure_hist", "e_measure_hist", "s_measure",
+               "boundary_f_measure", "weighted_f_measure"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", SOD_METRICS)
+def test_gpu_saliency_metric_matches_cpu(rng, name, masked):
+    """Each metric per image on the card against the CPU: 1e-5."""
+    from basi_tpu_torch.evals import saliency as SAL
+
+    dev = _cuda()
+    pred, gt, valid = _sod_inputs(rng)
+    v = valid if masked else None
+    want = getattr(SAL, name)(pred, gt, valid=v)
+    got = getattr(SAL, name)(pred.to(dev), gt.to(dev),
+                             valid=None if v is None else v.to(dev))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_gpu_edt_matches_cpu_exactly(rng):
+    from basi_tpu_torch.evals.saliency import _edt_payload
+
+    dev = _cuda()
+    fg = torch.from_numpy((rng.rand(2, 70, 90) < 0.03).astype(np.float32))
+    fg[:, ::16, ::16] = 1.0  # equidistant seeds: ties
+    pay = torch.from_numpy(rng.rand(2, 70, 90).astype(np.float32))
+    want = _edt_payload(fg, pay, chunk=16)
+    got = _edt_payload(fg.to(dev), pay.to(dev), chunk=16)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_gpu_gauss7_and_weighted_f_ignore_tf32(rng):
+    """With ``cudnn.allow_tf32`` and ``matmul.allow_tf32`` both on, the
+    Gaussian and the weighted F give what they give with both off."""
+    from basi_tpu_torch.evals.saliency import _gauss7, weighted_f_measure
+
+    dev = _cuda()
+    pred, gt, valid = (t.to(dev) for t in _sod_inputs(rng))
+    x = torch.from_numpy(rng.rand(2, 200, 300).astype(np.float32)).to(dev)
+    off = (_gauss7(x), weighted_f_measure(pred, gt, valid=valid))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        on = (_gauss7(x), weighted_f_measure(pred, gt, valid=valid))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("orig", [False, True])
+def test_gpu_evaluate_matches_cpu(orig):
+    """``Inferencer.evaluate`` of the tiny config in f32, the same seeded
+    weights on the card and on the CPU: saliency means within 1e-4, AP/AR
+    equal, the same image count (letterbox and original frame; the card
+    has no PIL, so the original frame is square there)."""
+    from basi_tpu_torch.infer import Inferencer
+
+    dev = _cuda()
+    cfg = _tiny_eval_cfg(f"infer.ap_at_original={str(orig).lower()}")
+    got = Inferencer(cfg, device=dev, seed=3).evaluate()
+    want = Inferencer(cfg, device="cpu", seed=3).evaluate()
+    assert set(got) == set(want) and got["num_images"] == want["num_images"]
+    for k, v in want.items():
+        if k.startswith("saliency"):
+            assert abs(got[k] - v) <= 1e-4, (k, got[k], v)
+        elif k.startswith(("AP", "AR", "mAP")):
+            assert got[k] == v, (k, got[k], v)
+
+
+@pytest.mark.gpu
+def test_gpu_eval_batch_launches_nine_upsample_int_and_one_sigmoid():
+    """bf16: one eval batch launches the forward's 9 ``upsample_int`` and
+    one ``upsample_sigmoid`` (the saliency map's f32 resize is the
+    einsum's, as in the reference)."""
+    from basi_tpu_torch.data.datasets import iter_epoch, make_dataset
+    from basi_tpu_torch.infer import Inferencer
+    from basi_tpu_torch.data.transforms import pack_masks_host
+
+    dev = _cuda()
+    cfg = _tiny_eval_cfg("infer.dtype=bfloat16")
+    inf = Inferencer(cfg, device=dev)
+    batch = next(iter_epoch(make_dataset(cfg.data, split="val"), 4,
+                            shuffle=False, seed=0, drop_last=False))
+    args = [torch.from_numpy(a).to(dev) for a in (
+        batch["image"], pack_masks_host(batch["masks"]), batch["valid"],
+        batch["valid_hw"])]
+    U.upsample_int.launches = S.upsample_sigmoid.launches = 0
+    with torch.inference_mode():
+        res, _, _ = inf._eval_batch(*args)
+    torch.cuda.synchronize()
+    assert (U.upsample_int.launches, S.upsample_sigmoid.launches) == (9, 1)
+    assert all(bool(torch.isfinite(v.float()).all()) for v in res.values())

@@ -230,6 +230,9 @@ def test_port_sources_import_no_jax():
     files = sorted((ROOT / "basi_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    for part in ("evals/__init__.py", "evals/ap.py", "evals/saliency.py",
+                 "data/native_gt.py", "ops/paste.py"):
+        assert ROOT / "basi_tpu_torch" / part in files, part
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

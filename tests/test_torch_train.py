@@ -477,7 +477,8 @@ def test_clip_by_global_norm_is_optax_formula(rng):
 
 def test_trainer_runs_three_steps_on_cpu(capsys):
     """``Trainer(cfg, device="cpu").train(max_steps=3)``: finite loss, a ``[train]``
-    record per step, the step count and the EMA advanced."""
+    record per step, the step count and the EMA advanced; then ``train()``
+    runs the epoch to its end and returns with the eval metrics."""
     cfg = tiny_config(batch_size=4)
     cfg = dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, synthetic_n=16),
@@ -491,9 +492,12 @@ def test_trainer_runs_three_steps_on_cpu(capsys):
     out = capsys.readouterr().out
     assert out.count("[train] ") == 3
     assert any(not torch.equal(ema0[k], v) for k, v in tr.state.ema.items())
-    # a full epoch ends in the per-epoch eval, which is not ported
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tr.train()
+    # the rest of the epoch, then the per-epoch eval on the val split
+    last = tr.train()
+    assert tr.state.step == 4 and last["step"] == 4
+    assert last["num_images"] == 4 and "saliency_S" in last
+    out = capsys.readouterr().out
+    assert out.count("[train] ") == 1 and out.count("[val] ") == 1
 
 
 @pytest.mark.parametrize("overrides", [
