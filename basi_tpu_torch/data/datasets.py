@@ -4,17 +4,22 @@
 ``SyntheticDataset`` draws the same procedural blob scenes as the JAX
 package for the same (seed, index), ``iter_epoch`` assembles the same
 batches in the same shuffled order, and ``make_dataset`` builds the
-synthetic set from a ``DataConfig``; the on-disk datasets (ILSO/SOC
-folders, COCO, shards) raise ``NotImplementedError``. numpy only; PIL is
-imported only to letterbox non-square scenes (``synthetic_orig_scale > 1``).
+synthetic set, or the packed shards of ``data/shards.py``, from a
+``DataConfig``; the ILSO/SOC folders and COCO raise
+``NotImplementedError``. numpy only: non-square scenes
+(``synthetic_orig_scale > 1``) are letterboxed by ``data/letterbox.py``,
+byte for byte as the JAX package's PIL resize.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
+
+from basi_tpu_torch.data.letterbox import resize_bilinear_u8
 
 
 @dataclass
@@ -107,12 +112,9 @@ class SyntheticDataset:
         if (oh, ow) == (s, s):
             hw = np.array([s, s], np.int32)
             return Sample(img, masks, valid, hw, hw, name=f"synthetic_{i}")
-        from PIL import Image
-
         vh, vw = letterbox_params(oh, ow, s)
         img_lb = np.zeros((s, s, 3), np.uint8)
-        img_lb[:vh, :vw] = np.asarray(
-            Image.fromarray(img).resize((vw, vh), Image.BILINEAR))
+        img_lb[:vh, :vw] = resize_bilinear_u8(img, vh, vw)
         ys = np.minimum(((np.arange(vh) + 0.5) * (oh / vh)).astype(np.int64),
                         oh - 1)
         xs = np.minimum(((np.arange(vw) + 0.5) * (ow / vw)).astype(np.int64),
@@ -132,8 +134,9 @@ class SyntheticDataset:
 
 
 def make_dataset(cfg_data, split: str | None = None):
-    """The synthetic dataset of ``cfg_data`` (train: ``synthetic_n`` scenes,
-    seed 0; other splits: a quarter of that, seed 1)."""
+    """The dataset of ``cfg_data``: synthetic (train: ``synthetic_n``
+    scenes, seed 0; other splits: a quarter of that, seed 1), or shards
+    under ``data.root`` (``root/<split>`` where that directory exists)."""
     split = cfg_data.split if split is None else split
     if cfg_data.dataset == "synthetic":
         n = cfg_data.synthetic_n if split == "train" \
@@ -144,7 +147,15 @@ def make_dataset(cfg_data, split: str | None = None):
             seed=0 if split == "train" else 1,
             orig_max_scale=cfg_data.synthetic_orig_scale,
         )
-    if cfg_data.dataset in ("ilso", "soc", "folder", "coco", "shards"):
+    if cfg_data.dataset == "shards":
+        from basi_tpu_torch.data.shards import ShardDataset
+
+        root = cfg_data.root
+        if split and os.path.isdir(os.path.join(root, split)):
+            root = os.path.join(root, split)
+        return ShardDataset(root, image_size=cfg_data.image_size,
+                            max_instances=cfg_data.max_instances)
+    if cfg_data.dataset in ("ilso", "soc", "folder", "coco"):
         raise NotImplementedError(
             f"data.dataset={cfg_data.dataset!r} not yet ported")
     raise ValueError(f"unknown dataset {cfg_data.dataset!r}")

@@ -8,9 +8,10 @@ device (full-resolution matching IoU, the saliency suite on the letterbox
 content region, GT areas), or with ``infer.ap_at_original`` the same
 metrics after pasting predictions and the saliency map back into each
 image's original frame, against native-resolution GT; the host accumulates
-mask AP/AR and the saliency means. Weights come from memory: JAX
+mask AP/AR and the saliency means. Weights come from JAX
 ``params``/``batch_stats`` trees (through ``export_basinet``), a torch
-state dict, or a seeded random init. It runs on the card unless
+state dict, a Trainer checkpoint or state dict file, or a seeded random
+init. It runs on the card unless
 ``device`` names another. Settings outside the port raise
 ``NotImplementedError``.
 """
@@ -50,6 +51,7 @@ from basi_tpu_torch.models.basi import BASIOutputs, create_model
 from basi_tpu_torch.ops.nms import select_instances_from_kernels
 from basi_tpu_torch.ops.paste import paste_masks_batch
 from basi_tpu_torch.ops.resize import resize_bilinear
+from basi_tpu_torch.utils.checkpoint import CheckpointManager
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Original-frame eval: canvases are 128-multiples up to this side, and the
@@ -132,20 +134,32 @@ class EvalAccumulator:
         return out
 
 
+def load_checkpoint_weights(path: str) -> dict:
+    """The model's state dict from a Trainer checkpoint directory
+    (``CheckpointManager.restore_weights``: EMA preferred) or a torch
+    state dict file."""
+    if os.path.isdir(path):
+        return CheckpointManager(path).restore_weights()
+    if os.path.isfile(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    raise FileNotFoundError(f"no checkpoint at {path!r}")
+
+
 class Inferencer:
     def __init__(self, cfg: Config, device=DEFAULT_DEVICE, params=None,
                  batch_stats=None, state_dict=None, checkpoint: str = "",
                  seed: int = 0):
         """``params``/``batch_stats``: JAX variable trees (numpy leaves);
-        ``state_dict``: torch names (``export_basinet`` output); with
-        neither, random weights from ``torch.Generator().manual_seed(seed)``.
-        Weights are cast once to the inference dtype (``infer.dtype``, or
+        ``state_dict``: torch names (``export_basinet`` output);
+        ``checkpoint``: a Trainer checkpoint directory (its newest step,
+        the EMA weights when it has them) or a torch state dict file (as
+        ``basi export --torch`` writes one); with none of these, random
+        weights from ``torch.Generator().manual_seed(seed)``. Weights are
+        cast once to the inference dtype (``infer.dtype``, or
         ``model.dtype`` when that is empty)."""
-        if checkpoint:
-            raise NotImplementedError(
-                "checkpoint loading not yet ported; pass params/batch_stats "
-                "or a state_dict")
         check_infer_config(cfg)
+        if checkpoint and params is None and state_dict is None:
+            state_dict = load_checkpoint_weights(checkpoint)
         self.cfg = cfg
         self.device = resolve_device(device)
         name = cfg.infer.dtype or cfg.model.dtype

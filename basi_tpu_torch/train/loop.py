@@ -15,12 +15,23 @@ into pinned memory and starts a non-blocking copy to the device on a side
 stream, a bounded queue ahead of the step; the step's stream waits for the
 copy's event. Settings outside the slice raise
 ``NotImplementedError`` (``train.state.check_train_config``).
+
+With ``train.checkpoint_dir`` the whole train state is saved after each
+epoch's eval and every ``train.checkpoint_every_steps`` steps, never twice
+at one step (``utils/checkpoint.py``), and ``train.resume`` restores it when
+the Trainer is built; a restored step resumes mid-epoch, skipping the
+batches already trained. While ``train()`` runs on the main thread, SIGTERM
+sets a flag (``train.save_on_preemption``; anything may set ``_preempt``)
+that stops the loop after the current step: the state is saved at that
+step, a ``[preempt]`` record is logged and ``train()`` returns. Records go
+through ``utils/logging.MetricLogger`` (console, and JSONL at
+``metrics_path``).
 """
 
 from __future__ import annotations
 
-import json
 import queue
+import signal
 import threading
 import time
 from typing import Iterator
@@ -40,6 +51,8 @@ from basi_tpu_torch.train.state import (
     make_schedule,
 )
 from basi_tpu_torch.train.step import compute_dtype, make_train_step
+from basi_tpu_torch.utils.checkpoint import CheckpointManager
+from basi_tpu_torch.utils.logging import MetricLogger
 
 _KEYS = ("image", "masks", "valid")
 
@@ -131,6 +144,11 @@ class Trainer:
         on the card unless ``device`` names another."""
         check_train_config(cfg)
         self.cfg = cfg
+        t = cfg.train
+        self.ckpt = (CheckpointManager(t.checkpoint_dir,
+                                       keep=t.keep_checkpoints,
+                                       async_save=t.async_checkpoint)
+                     if t.checkpoint_dir else None)
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg.model)
         self.dataset = make_dataset(cfg.data, split="train")
@@ -151,9 +169,19 @@ class Trainer:
                              torch.Generator().manual_seed(cfg.train.seed),
                              train=True)
         self.state = create_train_state(model, cfg.train)
+        if self.ckpt is not None:
+            self.state = self.ckpt.maybe_resume(self.state, t.resume)
         self.train_step = make_train_step(cfg.train, cfg.data, self.schedule,
                                           self.dtype)
         self.records: list[dict] = []
+        self.logger = MetricLogger(cfg.metrics_path,
+                                   tensorboard_dir=cfg.tensorboard_dir)
+        self._preempt = threading.Event()
+
+    def close(self) -> None:
+        """Close the metrics file; ``train`` only flushes it, so a Trainer
+        can train again. Idempotent."""
+        self.logger.close()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -161,40 +189,83 @@ class Trainer:
 
     def train(self, max_steps: int | None = None) -> dict:
         """Run until the configured epochs end, or ``max_steps`` steps in
-        total. Returns the last ``[train]`` record; after a whole epoch,
-        updated with that epoch's eval metrics."""
+        total, or a preemption stop. Returns the last ``[train]`` record;
+        after a whole epoch, updated with that epoch's eval metrics; after
+        a stop, with ``preempted_at_step``, ``epoch`` and
+        ``checkpoint_saved``."""
         cfg = self.cfg
         stop_at = self.max_steps if max_steps is None else min(max_steps,
                                                                self.max_steps)
         last: dict = {}
         every = max(1, cfg.train.log_every)
-        while self.state.step < stop_at:
-            epoch = self.state.step // self.steps_per_epoch
-            skip = self.state.step - epoch * self.steps_per_epoch
-            self._sync()
-            t0, since = time.perf_counter(), 0
-            for batch in self.feed.epoch(epoch, skip):
-                metrics = self.train_step(self.state, batch)
-                since += 1
-                step = self.state.step
-                if step % every == 0 or step == stop_at:
-                    fetched = {k: float(v) for k, v in metrics.items()}
-                    self._sync()
-                    ms = (time.perf_counter() - t0) * 1000.0 / since
-                    last = {"step": step, "epoch": epoch,
-                            "lr": self.schedule(step), "step_ms": ms,
-                            "imgs_per_s": cfg.data.batch_size * 1000.0 / ms,
-                            **fetched}
-                    self.records.append(last)
-                    print("[train] " + json.dumps(last), flush=True)
-                    t0, since = time.perf_counter(), 0
-                if max_steps is not None and step >= stop_at:
-                    return last
-            eval_metrics = self.evaluate()  # after every epoch, as JAX's
-            print("[val] " + json.dumps({"epoch": epoch, **eval_metrics}),
-                  flush=True)
-            last = {**last, **eval_metrics}
-        return last
+        ckpt_every = cfg.train.checkpoint_every_steps
+        last_saved = self.state.step if self.state.step else -1
+        restore_handler = self._install_preempt_handler()
+        try:
+            while self.state.step < stop_at:
+                epoch = self.state.step // self.steps_per_epoch
+                skip = self.state.step - epoch * self.steps_per_epoch
+                self._sync()
+                t0, since = time.perf_counter(), 0
+                for batch in self.feed.epoch(epoch, skip):
+                    metrics = self.train_step(self.state, batch)
+                    since += 1
+                    step = self.state.step
+                    if step % every == 0 or step == stop_at:
+                        fetched = {k: float(v) for k, v in metrics.items()}
+                        self._sync()
+                        ms = (time.perf_counter() - t0) * 1000.0 / since
+                        last = {"step": step, "epoch": epoch,
+                                "lr": self.schedule(step), "step_ms": ms,
+                                "imgs_per_s": cfg.data.batch_size * 1000.0 / ms,
+                                **fetched}
+                        self.records.append(last)
+                        self.logger.log(last, prefix="[train]")
+                        t0, since = time.perf_counter(), 0
+                    if self.ckpt is not None and ckpt_every \
+                            and step % ckpt_every == 0:
+                        self.ckpt.save(self.state)
+                        last_saved = step
+                    if self._preempt.is_set():
+                        return self._handle_preemption(epoch, last_saved, last)
+                    if max_steps is not None and step >= stop_at:
+                        return last
+                eval_metrics = self.evaluate()  # after every epoch, as JAX's
+                self.logger.log({"epoch": epoch, **eval_metrics},
+                                prefix="[val]")
+                if self.ckpt is not None and self.state.step != last_saved:
+                    self.ckpt.save(self.state)
+                    last_saved = self.state.step
+                last = {**last, **eval_metrics}
+            return last
+        finally:
+            restore_handler()
+            self.logger.flush()
+
+    def _install_preempt_handler(self):
+        """A fresh stop flag, and on the main thread (the only one Python
+        lets set a handler) with ``train.save_on_preemption`` a SIGTERM
+        handler that sets it. Returns a function that puts the previous
+        handler back."""
+        self._preempt = threading.Event()
+        if (not self.cfg.train.save_on_preemption
+                or threading.current_thread() is not threading.main_thread()):
+            return lambda: None
+        prev = signal.signal(signal.SIGTERM,
+                             lambda signum, frame: self._preempt.set())
+        return lambda: signal.signal(signal.SIGTERM, prev)
+
+    def _handle_preemption(self, epoch: int, last_saved: int,
+                           last: dict) -> dict:
+        """Save the state at its step (unless that step is saved), log the
+        ``[preempt]`` record and return it over ``last``."""
+        step = self.state.step
+        if self.ckpt is not None and step != last_saved:
+            self.ckpt.save(self.state)
+        rec = {"preempted_at_step": step, "epoch": epoch,
+               "checkpoint_saved": self.ckpt is not None}
+        self.logger.log(rec, prefix="[preempt]")
+        return {**last, **rec}
 
     def eval_state_dict(self, use_ema: bool | None = None) -> dict:
         """The model's state dict with the EMA in the params' places

@@ -72,7 +72,6 @@ def check_train_config(cfg) -> None:
         (t.optimizer == "adamw", "train.optimizer='adamw'"),
         (cfg.parallel.num_devices > 1 or cfg.parallel.spatial_shards > 1,
          "multi-device training"),
-        (bool(t.checkpoint_dir), "train.checkpoint_dir (checkpointing)"),
     ]
     for bad, what in todo:
         if bad:

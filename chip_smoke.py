@@ -58,8 +58,9 @@
    launch no BatchNorm kernel (eval mode).
 4. f32 check: the same weights through the port on the card (TF32 off) and
    on the CPU agree within 1e-3 on the model outputs (batch 1).
-5. Drives the training path at full width: preset ``bench_accuracy`` with
-   ``data.synthetic_orig_scale=1.0`` (ResNet-50, 512^2, bf16 compute with
+5. Drives the training path at full width: preset ``bench_accuracy`` as
+   written (non-square scenes letterboxed by the port's numpy resize;
+   ResNet-50, 512^2, bf16 compute with
    f32 params, batch 16, SGD + cosine + EMA), seeded weights, once for each
    ``model.bn_impl``: ``Trainer.train`` runs 10 steps of ``xla``, 10 of
    ``fused`` and 3 of ``stats``. Every step must launch
@@ -87,8 +88,8 @@
    the same weights and batch, for ``bn_impl`` xla and fused; loss and
    every gradient agree within 1e-3.
 7. Evaluation: ``Inferencer.evaluate`` of ``bench_accuracy`` at full width
-   in the original frame (``infer.ap_at_original=true``; square originals,
-   ``data.synthetic_orig_scale=1.0``: the card has no PIL), 64 val images
+   in the original frame (``infer.ap_at_original=true``; the preset's
+   non-square originals, so the paste is not the identity), 64 val images
    in 4 batches of 16, bf16, seeded weights; with the disk native-GT cache
    built beforehand in a temporary directory (the val set's packed GT on
    the device), once with ``infer.wf`` off and once on, then on without
@@ -109,6 +110,25 @@
    (no device given) whose ``train()`` runs its one epoch to the end and
    prints a ``[val]`` record of 8 images equal to ``Inferencer.evaluate``
    on the state's EMA weights.
+
+8. The accuracy recipe's path (``basi_tpu_torch.tools.bench_accuracy``)
+   at full width, in a temporary directory removed afterwards, the preset
+   as written (scale 1.5): 64 train and 16 val scenes packed into shards
+   (``pack_splits``), each record byte-equal to its synthetic sample, and
+   the host feed's ms per batch from each; ``Trainer.train`` from the
+   shards, 2 epochs of 4 steps with a checkpoint each epoch (8
+   ``normalize_and_flip``, 9 ``upsample_int`` and 9 backward launches a
+   step, 9 ``upsample_int`` and 1 ``upsample_sigmoid`` an eval batch); a
+   second run stopped by the preemption flag after step 6, whose saved
+   state loads back bit-equal (every tensor, step, generator), resumed by
+   a new Trainer to step 8: the same batches, lr and generator state at
+   steps 7 and 8 as the uninterrupted run, the last loss within 1e-3
+   relative (cuDNN's weight gradients need not repeat bit for bit); then
+   ``Inferencer(checkpoint=)`` equal to the Trainer's eval on the val
+   shards, and ``run_final_eval`` (the 16 raw val images in the original
+   frame, the paste not the identity) equal to the same EMA weights as a
+   state dict. The f32 card-vs-CPU eval at non-square originals is phase
+   7's, which runs the preset's scale now.
 
 Any failure raises and exits non-zero; so does a machine without CUDA or
 a directory without the package. The line before the last is the
@@ -1185,7 +1205,7 @@ def check_f32(cfg, sd, dev, gen):
         torch.testing.assert_close(outs[0][k], outs[1][k], atol=1e-3, rtol=1e-3)
 
 
-TRAIN_OVERRIDES = ["data.synthetic_orig_scale=1.0", "train.log_every=1"]
+TRAIN_OVERRIDES = ["train.log_every=1"]
 # steps of Trainer.train per model.bn_impl, and the launches of each step
 PATH_STEPS = {"xla": 10, "fused": 10, "stats": 3}
 BN_LAYERS = 53
@@ -1528,10 +1548,9 @@ def check_f32_step(dev, bn_impl: str):
                                    msg=lambda m, k=k: f"f32 step grad {k}: {m}")
 
 
-# Phase 7: evaluation at full width. The card has no PIL, which
-# letterboxes non-square scenes: the originals are square there.
-EVAL_OVERRIDES = ["data.synthetic_orig_scale=1.0", "data.synthetic_n=256",
-                  "infer.ap_at_original=true"]
+# Phase 7: evaluation at full width, the preset's non-square originals
+# (scale 1.5, letterboxed by the port's numpy resize).
+EVAL_OVERRIDES = ["data.synthetic_n=256", "infer.ap_at_original=true"]
 EVAL_IMAGES = 64  # the val split of synthetic_n=256
 TIMING_KEYS = ("infer_ms_per_batch", "imgs_per_s")
 # torch.profiler ranges of the eval program, by class; the EDT (the
@@ -1850,8 +1869,7 @@ def check_trainer_eval(dev) -> None:
     from basi_tpu_torch.infer import Inferencer
     from basi_tpu_torch.train.loop import Trainer
 
-    cfg = get_config("bench_accuracy", ["data.synthetic_orig_scale=1.0",
-                                        "data.synthetic_n=32",
+    cfg = get_config("bench_accuracy", ["data.synthetic_n=32",
                                         "train.epochs=1"])
     trainer = Trainer(cfg)
     _require(trainer.device == dev, f"Trainer ran on {trainer.device}")
@@ -1878,6 +1896,227 @@ def check_trainer_eval(dev) -> None:
           "EMA weights")
     del trainer
     torch.cuda.empty_cache()
+
+
+# Phase 8: the accuracy recipe's path, cut to size: 64 train and 16 val
+# scenes of the preset as written (scale 1.5), 2 epochs of 4 steps.
+RECIPE_OVERRIDES = ["data.synthetic_n=64", "train.epochs=2",
+                    "train.log_every=1", "infer.native_gt_cache="]
+RECIPE_STEPS, PREEMPT_AT = 8, 6
+# The resumed run's last loss against the uninterrupted run's: cuDNN's
+# weight-gradient algorithms need not repeat bit for bit, so two runs may
+# part by float rounding; a wrong resume (another batch, lr or momentum)
+# misses by far more.
+RESUME_LOSS_RTOL = 1e-3
+
+
+def _digest(batch: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for k in sorted(batch):
+        h.update(batch[k].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _traced_trainer(cfg, log: dict, stop_at: int = 0):
+    """A Trainer (the default device) whose steps record, by the step they
+    make: the batch's digest, the lr, the generator's state before the
+    step and the loss; after step ``stop_at`` the preemption flag is set."""
+    from basi_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg)
+    step_fn = trainer.train_step
+
+    def traced(state, batch):
+        before = (_digest(batch), trainer.schedule(state.step),
+                  state.generator.get_state())
+        metrics = step_fn(state, batch)
+        log[state.step] = before + (float(metrics["loss"]),)
+        if state.step == stop_at:
+            trainer._preempt.set()
+        return metrics
+
+    trainer.train_step = traced
+    return trainer
+
+
+def _feed_ms(dataset, batch_size: int, batches: int) -> float:
+    """Host ms per batch of the feed's work: assembly and mask packing."""
+    from basi_tpu_torch.data.datasets import iter_epoch
+    from basi_tpu_torch.data.transforms import pack_masks_host
+
+    t0 = time.perf_counter()
+    n = 0
+    for hb in iter_epoch(dataset, batch_size, shuffle=True, seed=0):
+        pack_masks_host(hb["masks"])
+        n += 1
+        if n == batches:
+            break
+    return 1000.0 * (time.perf_counter() - t0) / n
+
+
+def check_recipe(dev) -> dict:
+    """Phase 8: the ``bench_accuracy`` recipe's path at full width, in a
+    temporary directory: pack the train and val splits into shards, each
+    record byte-equal to the synthetic sample; an uninterrupted run of
+    ``RECIPE_STEPS`` steps from the shards with a checkpoint each epoch
+    (counts zeroed before it, read after); a run stopped by the
+    preemption flag after step ``PREEMPT_AT``, its saved state bit-equal
+    to the live one; a new Trainer that resumes it to the end, its steps'
+    batches, lr and generator state exactly the uninterrupted run's and
+    its last loss within ``RESUME_LOSS_RTOL``; ``Inferencer(checkpoint=)``
+    equal to the Trainer's eval on the val shards and, in the original
+    frame on the raw val split (``run_final_eval``), equal to the same EMA
+    weights given as a state dict. Returns the uninterrupted run's kernel
+    launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.data.datasets import make_dataset
+    from basi_tpu_torch.data.shards import ShardDataset
+    from basi_tpu_torch.infer import Inferencer
+    from basi_tpu_torch.tools.bench_accuracy import pack_splits, run_final_eval
+    from basi_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root = tempfile.mkdtemp(prefix="basi_recipe_")
+    try:
+        cfg0 = get_config("bench_accuracy", RECIPE_OVERRIDES)
+        _require(cfg0.data.synthetic_orig_scale == 1.5,
+                 "the preset's scale is not 1.5")
+        shard_root = os.path.join(root, "shards")
+        t0 = time.perf_counter()
+        train_ov = pack_splits(RECIPE_OVERRIDES, shard_root)
+        pack_s = time.perf_counter() - t0
+        for split in ("train", "val"):
+            src = make_dataset(cfg0.data, split=split)
+            packed = ShardDataset(os.path.join(shard_root, split))
+            _require(len(packed) == len(src), f"{split}: {len(packed)} records")
+            for i in range(len(src)):
+                a, b = src.get(i), packed.get(i)
+                _require(a.name == b.name and all(
+                    np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ("image", "masks", "valid", "orig_hw",
+                              "valid_hw")), f"{split} record {i} differs")
+        bs = cfg0.data.batch_size
+        feed = {name: _feed_ms(ds, bs, 4) for name, ds in (
+            ("synthetic", make_dataset(cfg0.data, split="train")),
+            ("shards", ShardDataset(os.path.join(shard_root, "train"))))}
+        print(f"packed 64 train and 16 val scenes of bench_accuracy (scale "
+              f"1.5) in {pack_s:.2f} s; every record byte-equal to its "
+              f"synthetic sample; host feed per batch of {bs} (assembly and "
+              f"mask packing): synthetic {feed['synthetic']:.1f} ms, shards "
+              f"{feed['shards']:.1f} ms")
+
+        def cfg(name):
+            return get_config("bench_accuracy", train_ov + [
+                f"train.checkpoint_dir={os.path.join(root, name)}"])
+
+        full: dict = {}
+        trainer = _traced_trainer(cfg("full"), full)
+        _require(trainer.device == dev, f"Trainer ran on {trainer.device}")
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        last = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _kernel_counts()
+        n_eval = 2  # one val batch of 16 per epoch
+        want = dict(_zero_counts(),
+                    upsample_int=9 * (RECIPE_STEPS + n_eval),
+                    upsample_int_bwd=9 * RECIPE_STEPS,
+                    normalize_and_flip=RECIPE_STEPS,
+                    upsample_sigmoid=n_eval)
+        print(f"recipe from shards: {RECIPE_STEPS} steps and {n_eval} evals "
+              f"in {wall:.2f} s; launches {launches}")
+        _require(launches == want, f"expected launches {want}")
+        ckpt_full = os.path.join(root, "full")
+        _require(CheckpointManager(ckpt_full).steps() == [4, 8],
+                 "expected checkpoints at the two epochs' ends")
+        val_metrics = _metrics_only(trainer.evaluate())
+        _require(all(val_metrics[k] == last[k] for k in val_metrics),
+                 "the Trainer's eval moved between calls")
+        ema_sd = {k: v.detach().cpu() for k, v in
+                  trainer.eval_state_dict().items()}
+        val_ds = trainer.val_dataset
+        del trainer
+        torch.cuda.empty_cache()
+
+        part: dict = {}
+        trainer = _traced_trainer(cfg("resumed"), part, stop_at=PREEMPT_AT)
+        res = trainer.train()
+        _require(res.get("preempted_at_step") == PREEMPT_AT
+                 and res.get("checkpoint_saved") is True,
+                 f"preemption: {res}")
+        mgr = CheckpointManager(os.path.join(root, "resumed"))
+        _require(mgr.steps() == [4, PREEMPT_AT], f"steps {mgr.steps()}")
+        raw, st = mgr.load(), trainer.state
+        live = {f"model.{k}": v for k, v in st.model.state_dict().items()}
+        live.update({f"ema.{k}": v for k, v in st.ema.items()})
+        saved = {f"model.{k}": v for k, v in raw["model"].items()}
+        saved.update({f"ema.{k}": v for k, v in raw["ema"].items()})
+        for i, p in enumerate(st.model.parameters()):
+            live[f"momentum.{i}"] = st.optimizer.state[p]["momentum_buffer"]
+            saved[f"momentum.{i}"] = raw["optimizer"]["state"][i][
+                "momentum_buffer"]
+        _require(set(live) == set(saved), "saved tensors differ in keys")
+        bad = [k for k in live if not torch.equal(live[k].cpu(), saved[k])]
+        _require(not bad and raw["step"] == st.step == PREEMPT_AT
+                 and torch.equal(raw["generator"], st.generator.get_state()),
+                 f"save -> load not bit-equal: {bad[:5]}")
+        print(f"preempted after step {PREEMPT_AT}: {len(live)} saved "
+              f"tensors bit-equal to the live state, step and generator "
+              f"equal")
+        del trainer, st, raw, live, saved
+        torch.cuda.empty_cache()
+
+        trainer = _traced_trainer(cfg("resumed"), part)
+        _require(trainer.state.step == PREEMPT_AT,
+                 f"resumed at step {trainer.state.step}")
+        trainer.train()
+        _require(trainer.state.step == RECIPE_STEPS, "resume did not finish")
+        for s in range(PREEMPT_AT + 1, RECIPE_STEPS + 1):
+            (da, lra, ga, _), (db, lrb, gb, _) = full[s], part[s]
+            _require(da == db and lra == lrb and torch.equal(ga, gb),
+                     f"resumed step {s}: another batch, lr or generator")
+        la, lb = full[RECIPE_STEPS][3], part[RECIPE_STEPS][3]
+        same = all(full[s][3] == part[s][3] for s in full)
+        print(f"resumed at step {PREEMPT_AT} to {RECIPE_STEPS}: batches, lr "
+              f"and generator state exactly the uninterrupted run's; last "
+              f"loss {lb:.8f} against {la:.8f} (every loss bit-equal: "
+              f"{same})")
+        _require(abs(la - lb) <= RESUME_LOSS_RTOL * abs(la),
+                 f"resumed loss beyond {RESUME_LOSS_RTOL} relative")
+        del trainer
+        torch.cuda.empty_cache()
+
+        inf = Inferencer(cfg("full"), checkpoint=ckpt_full)
+        got = _metrics_only(inf.evaluate(val_ds))
+        _require(got == val_metrics, f"Inferencer(checkpoint=) {got} != the "
+                 f"Trainer's eval {val_metrics}")
+        del inf
+        orig = run_final_eval("kernels", ckpt_full, RECIPE_OVERRIDES,
+                              device=dev)
+        ocfg = get_config("bench_accuracy", RECIPE_OVERRIDES + [
+            "infer.ap_at_original=true"])
+        want_orig = Inferencer(ocfg, state_dict=ema_sd).evaluate(
+            make_dataset(ocfg.data, split="val"))
+        orig, want_orig = _metrics_only(orig), _metrics_only(want_orig)
+        orig.pop("eval_wall_s")
+        _require(orig == want_orig and orig["num_images"] == 16
+                 and all(np.isfinite(v) for v in orig.values()),
+                 f"original-frame eval of the checkpoint {orig} != the EMA "
+                 f"weights' {want_orig}")
+        print(f"Inferencer(checkpoint=) equals the Trainer's eval on the val "
+              f"shards, and in the original frame on 16 raw val images "
+              f"equals the EMA weights given as a state dict: "
+              f"{json.dumps(orig)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1929,6 +2168,10 @@ def main() -> int:
     check_paste_sod(dev, gen)
     check_trainer_eval(dev)
     print(f"phase 7 (evaluation) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_recipe(dev)
+    print(f"phase 8 (the accuracy recipe's path) took "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # launches: each kernel's count over the path it serves, read right
     # after that path's run (upsample_int: the xla training path; the BN

@@ -27,6 +27,11 @@ saliency metric within 1e-5 and the EDT bit for bit; the Gaussian and the
 weighted F-measure unchanged with both TF32 flags on; ``evaluate`` of the
 tiny config in f32 with saliency means within 1e-4 and AP/AR equal; one
 bf16 eval batch launches 9 ``upsample_int`` and 1 ``upsample_sigmoid``.
+
+Checkpoints on the card: a saved train state loads back bit-equal; a
+Trainer fed from shards takes the first step of one fed from the synthetic
+set at the same loss (the same batch); ``Inferencer(checkpoint=...)``
+equals ``state_dict=`` of the same weights.
 """
 
 import numpy as np
@@ -712,8 +717,9 @@ def test_gpu_gauss7_and_weighted_f_ignore_tf32(rng):
 def test_gpu_evaluate_matches_cpu(orig):
     """``Inferencer.evaluate`` of the tiny config in f32, the same seeded
     weights on the card and on the CPU: saliency means within 1e-4, AP/AR
-    equal, the same image count (letterbox and original frame; the card
-    has no PIL, so the original frame is square there)."""
+    equal, the same image count (letterbox and original frame, square
+    originals: the paste is the identity; ``chip_smoke.py`` phase 7 holds
+    non-square ones at full width)."""
     from basi_tpu_torch.infer import Inferencer
 
     dev = _cuda()
@@ -751,3 +757,81 @@ def test_gpu_eval_batch_launches_nine_upsample_int_and_one_sigmoid():
     torch.cuda.synchronize()
     assert (U.upsample_int.launches, S.upsample_sigmoid.launches) == (9, 1)
     assert all(bool(torch.isfinite(v.float()).all()) for v in res.values())
+
+
+# --- checkpoints and shards on the card -----------------------------------------
+
+def _tiny_train_cfg(*overrides):
+    return _tiny_eval_cfg("data.synthetic_n=8", "data.synthetic_orig_scale=1.5",
+                          "train.ema_decay=0.9", "train.log_every=1",
+                          *overrides)
+
+
+@pytest.mark.gpu
+def test_gpu_checkpoint_round_trip_is_bit_equal(tmp_path):
+    """Two steps on the card, saved, then restored into a fresh state on
+    the card: params, BatchNorm statistics, momentum, EMA, step and the
+    generator bit-equal."""
+    from basi_tpu_torch.train.loop import Trainer
+    from basi_tpu_torch.utils.checkpoint import CheckpointManager
+
+    dev = _cuda()
+    tr = Trainer(_tiny_train_cfg(), device=dev)
+    tr.train(max_steps=2)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(tr.state)
+    fresh = Trainer(_tiny_train_cfg("train.seed=5"), device=dev)
+    mgr.restore(fresh.state)
+    a, b = tr.state, fresh.state
+    assert b.step == a.step == 2
+    for k, v in a.model.state_dict().items():
+        got = b.model.state_dict()[k]
+        assert got.device == v.device and torch.equal(got, v), k
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        assert torch.equal(a.optimizer.state[p]["momentum_buffer"],
+                           b.optimizer.state[q]["momentum_buffer"])
+    for k, v in a.ema.items():
+        assert torch.equal(b.ema[k], v), k
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+@pytest.mark.gpu
+def test_gpu_trainer_from_shards_takes_the_synthetic_first_step(tmp_path):
+    """The shards of the synthetic set feed the same first batch, so the
+    first step's loss on the card is the same."""
+    from basi_tpu_torch.data.datasets import make_dataset
+    from basi_tpu_torch.data.shards import pack_dataset
+    from basi_tpu_torch.train.loop import Trainer
+
+    dev = _cuda()
+    cfg = _tiny_train_cfg()
+    for split in ("train", "val"):
+        pack_dataset(make_dataset(cfg.data, split=split),
+                     str(tmp_path / split), log=None)
+    losses = []
+    for ov in ((), ("data.dataset=shards", f"data.root={tmp_path}")):
+        tr = Trainer(_tiny_train_cfg(*ov), device=dev)
+        losses.append(tr.train(max_steps=1)["loss"])
+    assert losses[0] == losses[1] and np.isfinite(losses[0])
+
+
+@pytest.mark.gpu
+def test_gpu_inferencer_from_checkpoint_equals_state_dict(tmp_path):
+    """``Inferencer(checkpoint=dir)`` on the card: the EMA weights the
+    Trainer evaluates with, and the same metrics as ``state_dict=``."""
+    from basi_tpu_torch.infer import Inferencer
+    from basi_tpu_torch.train.loop import Trainer
+
+    dev = _cuda()
+    cfg = _tiny_train_cfg(f"train.checkpoint_dir={tmp_path / 'ckpt'}",
+                          "train.epochs=1")
+    tr = Trainer(cfg, device=dev)
+    tr.train()
+    a = Inferencer(cfg, device=dev, checkpoint=str(tmp_path / "ckpt"))
+    b = Inferencer(cfg, device=dev, state_dict=tr.eval_state_dict())
+    for k, v in b.model.state_dict().items():
+        assert torch.equal(a.model.state_dict()[k], v), k
+    timing = ("infer_ms_per_batch", "imgs_per_s")
+    ma, mb = a.evaluate(), b.evaluate()
+    assert {k: v for k, v in ma.items() if k not in timing} == \
+        {k: v for k, v in mb.items() if k not in timing}

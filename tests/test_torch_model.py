@@ -163,6 +163,14 @@ def test_unported_settings_raise_not_implemented(overrides):
 
 
 @pytest.mark.parametrize("kwargs", [{"aot_path": "x"}, {"checkpoint": "x"}])
-def test_unported_predictor_sources_raise_not_implemented(kwargs):
+def test_unported_predictor_sources_raise_not_implemented(kwargs, tmp_path,
+                                                          monkeypatch):
+    """``aot_path`` is not ported; a checkpoint that is not there raises
+    ``FileNotFoundError`` (checkpoints load since the port has them)."""
+    monkeypatch.chdir(tmp_path)
+    if "checkpoint" in kwargs:
+        with pytest.raises(FileNotFoundError, match="no checkpoint"):
+            BatchedPredictor(tiny_config(), device="cpu", **kwargs)
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         BatchedPredictor(tiny_config(), device="cpu", **kwargs)

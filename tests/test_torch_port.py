@@ -11,7 +11,7 @@ entry points run on the card unless asked for the CPU.
 * ``basi_tpu_torch.data.datasets``: the same samples for the same seed and
   index, and the same batches in the same order from ``iter_epoch``.
 * An AST scan: no module of the port and not ``chip_smoke.py`` imports
-  ``basi_tpu``, ``jax`` or ``flax``.
+  ``basi_tpu``, ``jax``, ``flax`` or ``PIL``.
 """
 
 import ast
@@ -26,6 +26,7 @@ from basi_tpu import config as jax_config
 from basi_tpu.convert.full_import import import_basinet as jax_import_basinet
 from basi_tpu.convert.torch_export import export_basinet as jax_export_basinet
 from basi_tpu.data import datasets as jax_datasets
+from basi_tpu.data import shards as jax_shards
 from basi_tpu_torch import config as C
 from basi_tpu_torch import convert
 from basi_tpu_torch.data import datasets as D
@@ -164,15 +165,19 @@ def _assert_samples_equal(a, b):
 
 @pytest.mark.parametrize("seed,scale", [(0, 1.0), (1, 1.0), (0, 1.5)])
 def test_synthetic_samples_match_jax(seed, scale):
-    """Square scenes and letterboxed non-square ones (PIL on the host)."""
-    kw = dict(n=6, image_size=64, max_instances=4, seed=seed,
-              orig_max_scale=scale)
-    got, want = D.SyntheticDataset(**kw), jax_datasets.SyntheticDataset(**kw)
-    assert len(got) == len(want)
-    for i in range(len(want)):
-        _assert_samples_equal(got.get(i), want.get(i))
-        for x, y in zip(got.get_orig_masks(i), want.get_orig_masks(i)):
-            np.testing.assert_array_equal(x, y)
+    """Square scenes and letterboxed non-square ones (the port's numpy
+    letterbox against JAX's PIL), at 64 and at ``bench_accuracy``'s 512
+    with its 8 instance slots."""
+    for size, n, m in ((64, 6, 4), (512, 3, 8)):
+        kw = dict(n=n, image_size=size, max_instances=m, seed=seed,
+                  orig_max_scale=scale)
+        got = D.SyntheticDataset(**kw)
+        want = jax_datasets.SyntheticDataset(**kw)
+        assert len(got) == len(want)
+        for i in range(len(want)):
+            _assert_samples_equal(got.get(i), want.get(i))
+            for x, y in zip(got.get_orig_masks(i), want.get_orig_masks(i)):
+                np.testing.assert_array_equal(x, y)
     for hw in ((480, 640), (767, 383), (1, 1000)):
         assert D.letterbox_params(*hw, 512) == jax_datasets.letterbox_params(
             *hw, 512)
@@ -201,18 +206,28 @@ def test_make_dataset_and_iter_epoch_match_jax(split):
                 np.testing.assert_array_equal(x[k], y[k], err_msg=k)
 
 
-def test_on_disk_datasets_not_ported():
-    for name in ("ilso", "soc", "folder", "coco", "shards"):
+def test_on_disk_datasets_not_ported(tmp_path):
+    """The folder and COCO datasets raise; shards build (JAX's packing)."""
+    for name in ("ilso", "soc", "folder", "coco"):
         cfg = C.get_config("", [f"data.dataset={name}"])
         with pytest.raises(NotImplementedError, match="not yet ported"):
             D.make_dataset(cfg.data)
+    src = jax_datasets.SyntheticDataset(n=4, image_size=32, max_instances=3)
+    jax_shards.pack_dataset(src, str(tmp_path / "train"), log=None)
+    cfg = C.get_config("", ["data.dataset=shards", f"data.root={tmp_path}",
+                            "data.image_size=32", "model.image_size=32",
+                            "data.max_instances=3"])
+    ds = D.make_dataset(cfg.data, split="train")
+    assert type(ds).__name__ == "ShardDataset" and len(ds) == 4
+    _assert_samples_equal(ds.get(2), src.get(2))
     with pytest.raises(ValueError):
         D.make_dataset(C.get_config("", ["data.dataset=nope"]).data)
 
 
 # --- no JAX in the port -----------------------------------------------------------
 
-FORBIDDEN = ("basi_tpu", "jax", "flax")
+# the card's machine has no PIL either
+FORBIDDEN = ("basi_tpu", "jax", "flax", "PIL")
 
 
 def _imports(path: pathlib.Path) -> list[str]:
@@ -231,7 +246,9 @@ def test_port_sources_import_no_jax():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     for part in ("evals/__init__.py", "evals/ap.py", "evals/saliency.py",
-                 "data/native_gt.py", "ops/paste.py"):
+                 "data/native_gt.py", "ops/paste.py", "data/letterbox.py",
+                 "data/shards.py", "utils/logging.py", "utils/checkpoint.py",
+                 "tools/bench_accuracy.py"):
         assert ROOT / "basi_tpu_torch" / part in files, part
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]

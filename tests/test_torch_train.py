@@ -509,9 +509,10 @@ def test_trainer_runs_three_steps_on_cpu(capsys):
     ["model.refine=true"],
     ["train.optimizer=adamw"],
     ["train.remat=true"],
-    ["train.checkpoint_dir=ckpt"],
+    ["train.checkpoint_dir=ckpt", "train.async_checkpoint=true"],
     ["parallel.num_devices=2"],
     ["model.instance_mechanism=roi"],
+    ["tensorboard_dir=tb"],
 ])
 def test_unported_training_settings_raise(overrides):
     cfg = get_config("bench_accuracy", ["data.synthetic_orig_scale=1.0",
