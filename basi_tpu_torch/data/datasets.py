@@ -1,14 +1,15 @@
-"""Synthetic scenes and host batch assembly (the port's copy of the part of
-``basi_tpu/data/datasets.py`` that training uses).
+"""Datasets and host batch assembly (port of ``basi_tpu/data/datasets.py``).
 
 ``SyntheticDataset`` draws the same procedural blob scenes as the JAX
-package for the same (seed, index), ``iter_epoch`` assembles the same
-batches in the same shuffled order, and ``make_dataset`` builds the
-synthetic set, or the packed shards of ``data/shards.py``, from a
-``DataConfig``; the ILSO/SOC folders and COCO raise
-``NotImplementedError``. numpy only: non-square scenes
-(``synthetic_orig_scale > 1``) are letterboxed by ``data/letterbox.py``,
-byte for byte as the JAX package's PIL resize.
+package for the same (seed, index); ``FolderDataset`` reads ILSO/SOC-style
+folders of images and instance masks; ``iter_epoch`` assembles the same
+batches in the same shuffled order; ``make_dataset`` builds the synthetic
+set, a folder (``ilso``, ``soc``, ``folder``), COCO (``data/coco.py``) or
+the packed shards of ``data/shards.py`` from a ``DataConfig``. numpy only:
+non-square scenes (``synthetic_orig_scale > 1``) are letterboxed by
+``data/letterbox.py``, byte for byte as the JAX package's PIL resize;
+files are decoded by ``data/native.py`` and mask PNGs read by
+``data/png.py``, byte for byte as the JAX package's decoder and PIL.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Iterator
 import numpy as np
 
 from basi_tpu_torch.data.letterbox import resize_bilinear_u8
+from basi_tpu_torch.data.png import read_png
 
 
 @dataclass
@@ -38,6 +40,36 @@ def letterbox_params(orig_h: int, orig_w: int, size: int) -> tuple[int, int]:
     scale = size / max(orig_h, orig_w)
     return (max(1, int(orig_h * scale + 0.5)),
             max(1, int(orig_w * scale + 0.5)))
+
+
+def nearest_rows(n_src: int, n_dst: int) -> np.ndarray:
+    """The centre-convention nearest source index of each of ``n_dst``
+    outputs, ``floor((j + 0.5) * n_src / n_dst)``."""
+    return np.minimum(((np.arange(n_dst) + 0.5) * (n_src / n_dst))
+                      .astype(np.int64), n_src - 1)
+
+
+def read_label_png(path: str) -> np.ndarray:
+    """A labeled mask PNG's raw per-pixel ids: modes ``P``, ``L``, ``I``
+    and ``I;16`` as stored (palette indices, never colours: two ids whose
+    colours share a channel would merge), any other mode's channel 0 (a
+    1-bit PNG gives bool ids)."""
+    arr, mode = read_png(path)
+    if mode not in ("P", "L", "I", "I;16") and arr.ndim == 3:
+        arr = arr[..., 0]
+    return arr
+
+
+def decode_label_letterbox(path: str, size: int) -> np.ndarray:
+    """A labeled mask PNG's raw ids (``read_label_png``), letterboxed to
+    (size, size) with centre-convention nearest sampling."""
+    arr = read_label_png(path)
+    h, w = arr.shape[:2]
+    vh, vw = letterbox_params(h, w, size)
+    out = np.zeros((size, size), arr.dtype)
+    out[:vh, :vw] = arr[nearest_rows(h, vh)[:, None],
+                        nearest_rows(w, vw)[None, :]]
+    return out
 
 
 class SyntheticDataset:
@@ -115,12 +147,9 @@ class SyntheticDataset:
         vh, vw = letterbox_params(oh, ow, s)
         img_lb = np.zeros((s, s, 3), np.uint8)
         img_lb[:vh, :vw] = resize_bilinear_u8(img, vh, vw)
-        ys = np.minimum(((np.arange(vh) + 0.5) * (oh / vh)).astype(np.int64),
-                        oh - 1)
-        xs = np.minimum(((np.arange(vw) + 0.5) * (ow / vw)).astype(np.int64),
-                        ow - 1)
         masks_lb = np.zeros((self.max_instances, s, s), np.uint8)
-        masks_lb[:, :vh, :vw] = masks[:, ys[:, None], xs[None, :]]
+        masks_lb[:, :vh, :vw] = masks[:, nearest_rows(oh, vh)[:, None],
+                                      nearest_rows(ow, vw)[None, :]]
         return Sample(
             img_lb, masks_lb, valid,
             np.array([oh, ow], np.int32), np.array([vh, vw], np.int32),
@@ -133,10 +162,154 @@ class SyntheticDataset:
         return masks, valid
 
 
+class FolderDataset:
+    """ILSO/SOC-style folder dataset: images and instance masks on disk.
+
+    root[/<split>]/
+      images/*.jpg|jpeg|png|bmp
+      masks/<stem>.png            (labeled: pixel value k > 0 = instance k) OR
+      masks/<stem>/*.png          (one binary PNG per instance, > 127 is on)
+
+    An image without either has no instances. ``split`` picks
+    ``root/<split>`` when it has an ``images`` directory. Images decode
+    through ``data/native.py`` (``.bmp`` raises there, as in the JAX
+    package); labeled masks keep their raw ids (``read_label_png``)."""
+
+    IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
+
+    def __init__(self, root: str, image_size: int = 512,
+                 max_instances: int = 8, split: str = "",
+                 decode_backend: str = "auto"):
+        from basi_tpu_torch.data.native import get_decoder
+
+        self.root = root
+        self.size = image_size
+        self.max_instances = max_instances
+        img_dir = os.path.join(root, "images")
+        if split and os.path.isdir(os.path.join(root, split, "images")):
+            img_dir = os.path.join(root, split, "images")
+            root = os.path.join(root, split)
+        self.img_dir = img_dir
+        self.mask_dir = os.path.join(root, "masks")
+        if not os.path.isdir(img_dir):
+            raise FileNotFoundError(f"no images dir under {root}")
+        self.names = sorted(f for f in os.listdir(img_dir)
+                            if f.lower().endswith(self.IMG_EXTS))
+        self.decoder = get_decoder(decode_backend)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def image_id(self, i: int):
+        """COCO-results image id: an all-digit stem parses to an int,
+        anything else stays a string."""
+        stem = os.path.splitext(self.names[i])[0]
+        return int(stem) if stem.isdecimal() else stem
+
+    def _mask_jobs(self, stem: str) -> tuple[str, list[str]]:
+        """(kind, mask file paths) of one image; kind is ``labeled``,
+        ``per`` or ``none``."""
+        labeled = os.path.join(self.mask_dir, stem + ".png")
+        per_dir = os.path.join(self.mask_dir, stem)
+        if os.path.isfile(labeled):
+            return "labeled", [labeled]
+        if os.path.isdir(per_dir):
+            return "per", [os.path.join(per_dir, f) for f in
+                           sorted(os.listdir(per_dir))[:self.max_instances]]
+        return "none", []
+
+    def _assemble(self, kind: str, decoded: list[np.ndarray], hw):
+        """(masks (M, *hw) u8, valid (M,) u8) of the 2-D mask arrays of one
+        image: a labeled image's nonzero ids in ascending order, or each
+        per-instance mask above 127, capped at ``max_instances``."""
+        masks = np.zeros((self.max_instances, *hw), np.uint8)
+        count = 0
+        if kind == "labeled":
+            lab = decoded[0]
+            for v in [v for v in np.unique(lab) if v > 0][:self.max_instances]:
+                masks[count] = lab == v
+                count += 1
+        elif kind == "per":
+            for m in decoded[:self.max_instances]:
+                masks[count] = m > 127
+                count += 1
+        valid = np.zeros((self.max_instances,), np.uint8)
+        valid[:count] = 1
+        return masks, valid
+
+    def _sample(self, img, hw, stem: str, kind: str, decoded) -> Sample:
+        oh, ow = int(hw[0]), int(hw[1])
+        masks, valid = self._assemble(kind, decoded, (self.size, self.size))
+        return Sample(img, masks, valid, np.array([oh, ow], np.int32),
+                      np.array(letterbox_params(oh, ow, self.size), np.int32),
+                      name=stem)
+
+    def get(self, i: int) -> Sample:
+        name = self.names[i]
+        stem = os.path.splitext(name)[0]
+        img, hw = self.decoder.decode_letterbox(
+            os.path.join(self.img_dir, name), self.size)
+        kind, paths = self._mask_jobs(stem)
+        if kind == "labeled":
+            decoded = [decode_label_letterbox(paths[0], self.size)]
+        else:
+            decoded = [self.decoder.decode_letterbox(p, self.size,
+                                                     nearest=True)[0][..., 0]
+                       for p in paths]
+        return self._sample(img, hw, stem, kind, decoded)
+
+    def get_batch(self, indices) -> list[Sample]:
+        """``get`` of each index, equal to it: the images in one call of
+        the decoder's thread pool, the per-instance masks in a second;
+        labeled masks through ``decode_label_letterbox``."""
+        names = [self.names[int(i)] for i in indices]
+        stems = [os.path.splitext(n)[0] for n in names]
+        imgs, hws = self.decoder.decode_letterbox_batch(
+            [os.path.join(self.img_dir, n) for n in names], self.size)
+        jobs = [self._mask_jobs(s) for s in stems]
+        flat = [p for kind, ps in jobs if kind == "per" for p in ps]
+        per = self.decoder.decode_letterbox_batch(
+            flat, self.size, nearest=True)[0][..., 0] if flat else None
+        out, cursor = [], 0
+        for si, (kind, ps) in enumerate(jobs):
+            if kind == "labeled":
+                decoded = [decode_label_letterbox(ps[0], self.size)]
+            else:
+                decoded = list(per[cursor:cursor + len(ps)]) if ps else []
+                cursor += len(ps)
+            out.append(self._sample(imgs[si], hws[si], stems[si], kind,
+                                    decoded))
+        return out
+
+    def get_orig_masks(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        """Native-resolution GT: (masks (M, oh, ow) u8, valid (M,) u8), the
+        mask files read unresized (``read_png``), the rules of ``get``;
+        an image without masks gives zeros at its own size."""
+        from basi_tpu_torch.data.native import image_size
+
+        stem = os.path.splitext(self.names[i])[0]
+        kind, paths = self._mask_jobs(stem)
+        if kind == "labeled":
+            decoded = [read_label_png(paths[0])]
+        else:
+            decoded = []
+            for p in paths:
+                a = read_png(p)[0]
+                decoded.append(a[..., 0] if a.ndim == 3 else a)
+        if not decoded:
+            hw = image_size(os.path.join(self.img_dir, self.names[i]))
+        else:
+            hw = decoded[0].shape[:2]
+        return self._assemble(kind, decoded, hw)
+
+
 def make_dataset(cfg_data, split: str | None = None):
     """The dataset of ``cfg_data``: synthetic (train: ``synthetic_n``
-    scenes, seed 0; other splits: a quarter of that, seed 1), or shards
-    under ``data.root`` (``root/<split>`` where that directory exists)."""
+    scenes, seed 0; other splits: a quarter of that, seed 1); a folder
+    (``ilso``, ``soc``, ``folder``: ``data.root``, default
+    ``data/<name>``); COCO (``data.root``, default ``data/coco``, and
+    ``data.ann_file``); or shards under ``data.root`` (``root/<split>``
+    where that directory exists)."""
     split = cfg_data.split if split is None else split
     if cfg_data.dataset == "synthetic":
         n = cfg_data.synthetic_n if split == "train" \
@@ -155,9 +328,21 @@ def make_dataset(cfg_data, split: str | None = None):
             root = os.path.join(root, split)
         return ShardDataset(root, image_size=cfg_data.image_size,
                             max_instances=cfg_data.max_instances)
-    if cfg_data.dataset in ("ilso", "soc", "folder", "coco"):
-        raise NotImplementedError(
-            f"data.dataset={cfg_data.dataset!r} not yet ported")
+    if cfg_data.dataset in ("ilso", "soc", "folder"):
+        root = cfg_data.root or os.path.join("data", cfg_data.dataset)
+        return FolderDataset(
+            root, image_size=cfg_data.image_size,
+            max_instances=cfg_data.max_instances, split=split,
+            decode_backend=cfg_data.decode_backend)
+    if cfg_data.dataset == "coco":
+        from basi_tpu_torch.data.coco import CocoDataset
+
+        root = cfg_data.root or os.path.join("data", "coco")
+        return CocoDataset(
+            root, image_size=cfg_data.image_size,
+            max_instances=cfg_data.max_instances, split=split,
+            decode_backend=cfg_data.decode_backend,
+            ann_file=cfg_data.ann_file)
     raise ValueError(f"unknown dataset {cfg_data.dataset!r}")
 
 

@@ -12,8 +12,10 @@ Two faults of the reference are fixed here: the file is written to a
 temporary name unique to the writer and moved into place with
 ``os.replace``, so two processes may build the same cache at once; and the
 key holds ``SyntheticDataset.SCENE_VERSION``, so GT drawn by an older scene
-generator is never served. Only ``SyntheticDataset`` has a key; folder and
-COCO datasets are not ported.
+generator is never served. A folder dataset's key holds its mask files'
+paths and modification times, a COCO dataset's its annotation file's path
+and time and the assembly settings: the JAX package's keys, so an edited
+mask or annotation file builds a new cache.
 """
 
 from __future__ import annotations
@@ -35,7 +37,25 @@ def dataset_cache_key(dataset) -> str | None:
         return json.dumps(["SyntheticDataset", dataset.SCENE_VERSION,
                            dataset.n, dataset.size, dataset.max_instances,
                            dataset.seed, dataset.orig_max_scale])
+    if "CocoDataset" in names:
+        ann = dataset.ann_path
+        return json.dumps(["CocoDataset", dataset.size,
+                           dataset.max_instances, dataset.include_crowd,
+                           ann, _mtime(ann), len(dataset)])
+    if "FolderDataset" in names:
+        sig = [(p, _mtime(p)) for name in dataset.names
+               for p in dataset._mask_jobs(os.path.splitext(name)[0])[1]]
+        return json.dumps(["FolderDataset", dataset.size,
+                           dataset.max_instances, sig])
     return None
+
+
+def _mtime(path: str) -> float:
+    """A file's modification time, -1 where it cannot be read."""
+    try:
+        return os.path.getmtime(path) if path else -1.0
+    except OSError:
+        return -1.0
 
 
 def _write_atomic(path: str, write) -> None:

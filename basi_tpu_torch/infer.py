@@ -8,7 +8,13 @@ device (full-resolution matching IoU, the saliency suite on the letterbox
 content region, GT areas), or with ``infer.ap_at_original`` the same
 metrics after pasting predictions and the saliency map back into each
 image's original frame, against native-resolution GT; the host accumulates
-mask AP/AR and the saliency means. Weights come from JAX
+mask AP/AR and the saliency means, and on request writes each image's
+predicted instances as a labeled PNG at its original size
+(``infer.save_png``), a COCO-format results file (``results_path``) and a
+``torch.profiler`` trace (``profile``). ``predict_paths`` runs image files
+through the same program: decode and letterbox (``data/native.py``), the
+model, the selection, the upsample, the paste back to each original size,
+then a PNG per image and the COCO results. Weights come from JAX
 ``params``/``batch_stats`` trees (through ``export_basinet``), a torch
 state dict, a Trainer checkpoint or state dict file, or a seeded random
 init. It runs on the card unless
@@ -30,7 +36,13 @@ from torch.profiler import record_function
 
 from basi_tpu_torch.config import Config
 from basi_tpu_torch.convert import load_jax_variables
-from basi_tpu_torch.data.datasets import iter_epoch, make_dataset
+from basi_tpu_torch.data.coco import mask_to_rle
+from basi_tpu_torch.data.datasets import (
+    iter_epoch,
+    letterbox_params,
+    make_dataset,
+)
+from basi_tpu_torch.data.native import get_decoder
 from basi_tpu_torch.data.native_gt import NativeGTCache
 from basi_tpu_torch.data.transforms import (
     maybe_unpack_masks,
@@ -52,12 +64,17 @@ from basi_tpu_torch.ops.nms import select_instances_from_kernels
 from basi_tpu_torch.ops.paste import paste_masks_batch
 from basi_tpu_torch.ops.resize import resize_bilinear
 from basi_tpu_torch.utils.checkpoint import CheckpointManager
+from basi_tpu_torch.utils.logging import save_mask_pngs
+from basi_tpu_torch.utils.profiling import maybe_trace
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Original-frame eval: canvases are 128-multiples up to this side, and the
 # whole val set's packed GT stays on the device up to this many bytes.
 MAX_CANVAS = 2048
 DEVICE_GT_BYTES = 2 * 1024 ** 3
+# Exported masks (PNGs, COCO results): canvases are 512-multiples, as the
+# reference's, up to MAX_CANVAS.
+EXPORT_BUCKET = 512
 # what ``evaluate`` fetches of each batch, in this order
 _FETCHED = ("scores", "iou", "mae", "f", "e", "s", "bf", "wf", "valid",
             "areas")
@@ -80,6 +97,30 @@ def _canvas_side(extent: int, size: int) -> int:
     """The canvas bucket of an original extent: a 128-multiple, at least
     the model size, at most ``MAX_CANVAS``."""
     return min(max(size, -(-extent // 128) * 128), MAX_CANVAS)
+
+
+def _unique_stems(paths) -> list[str]:
+    """Each path's file stem, made unique with ``_1``, ``_2``... in order,
+    so that inputs from other directories never overwrite each other's
+    PNG."""
+    names, used = [], set()
+    for p in paths:
+        base = os.path.splitext(os.path.basename(str(p)))[0]
+        name, k = base, 1
+        while name in used:
+            name, k = f"{base}_{k}", k + 1
+        used.add(name)
+        names.append(name)
+    return names
+
+
+def _probe_writable(path: str) -> None:
+    """Fail before any inference when ``path`` cannot be written: opened
+    in append mode, so an existing file keeps its contents and no empty
+    result list is left behind."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "a"):
+        pass
 
 
 def _place_packed(dst: np.ndarray, packed: np.ndarray, oh: int) -> None:
@@ -233,6 +274,151 @@ class Inferencer:
         p32 = torch.clamp(probs.float(), 1e-6, 1 - 1e-6)
         logits = (torch.log(p32) - torch.log1p(-p32)).to(probs.dtype)
         return upsample_sigmoid(logits, (size, size))
+
+    # --- prediction export ------------------------------------------------
+
+    def _fetch(self, *tensors: torch.Tensor) -> list[np.ndarray]:
+        """Host copies of device tensors, through pinned memory on a GPU
+        (one wait for all of them)."""
+        if self.device.type != "cuda":
+            return [t.cpu().numpy() for t in tensors]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return [h.numpy() for h in host]
+
+    def _paste_batch(self, batch: dict, full: torch.Tensor):
+        """Full-resolution slot masks (N, K, size, size) pasted onto each
+        image's original frame on the device: a canvas of 512-multiples
+        at least the model size, sized to the batch's largest original,
+        at most ``MAX_CANVAS`` (warns beyond it: PNGs are cropped there
+        and RLE masks zero beyond it). Returns (pasted (N, K, ch, cw) f32
+        on the device, ch, cw)."""
+        size = self.cfg.model.image_size
+        mh = int(np.max(batch["orig_hw"][:, 0]))
+        mw = int(np.max(batch["orig_hw"][:, 1]))
+        ch = min(max(size, -(-mh // EXPORT_BUCKET) * EXPORT_BUCKET),
+                 MAX_CANVAS)
+        cw = min(max(size, -(-mw // EXPORT_BUCKET) * EXPORT_BUCKET),
+                 MAX_CANVAS)
+        if mh > MAX_CANVAS or mw > MAX_CANVAS:
+            warnings.warn(
+                f"original image {mh}x{mw} exceeds the {MAX_CANVAS} paste "
+                f"canvas cap; saved mask PNGs are cropped and exported RLE "
+                f"masks are zero-padded beyond the canvas")
+        pasted = paste_masks_batch(full, self._upload(batch["valid_hw"]),
+                                   (ch, cw), self._upload(batch["orig_hw"]))
+        return pasted, ch, cw
+
+    def _export_batch(self, bi: int, batch: dict, full: torch.Tensor,
+                      scores: np.ndarray, names=None, out_dir: str = "",
+                      pngs: bool = True) -> list[list]:
+        """Paste one batch, fetch its masks binarized at 0.5 (all that the
+        PNGs and the RLE read), write a PNG per real image (``pngs``), and
+        return each real image's kept instances (``_kept_instances``)."""
+        pasted, ch, cw = self._paste_batch(batch, full)
+        (on,) = self._fetch(pasted > 0.5)
+        del pasted
+        kept = []
+        for i in range(int(batch["num_real"])):
+            oh = int(batch["orig_hw"][i][0])
+            ow = int(batch["orig_hw"][i][1])
+            if pngs:
+                save_mask_pngs(
+                    out_dir or self.cfg.infer.output_dir,
+                    names[i] if names else f"b{bi}_i{i}",
+                    on[i][:, :min(oh, ch), :min(ow, cw)], scores[i],
+                    self.cfg.infer.score_threshold)
+            kept.append(self._kept_instances(
+                on[i], scores[i], oh, ow, self.cfg.infer.score_threshold))
+        return kept
+
+    @staticmethod
+    def _kept_instances(slots: np.ndarray, scores: np.ndarray, oh: int,
+                        ow: int, thr: float) -> list[tuple]:
+        """The one keep rule of the summaries and the COCO entries: the
+        score reaches ``thr`` and is positive, and the pasted mask (> 0.5,
+        cropped to the canvas) is not empty. [(slot, score, bool mask)]."""
+        kept = []
+        ch, cw = slots.shape[-2:]
+        for j, s in enumerate(scores):
+            if s < thr or s <= 0:
+                continue
+            m = slots[j, :min(oh, ch), :min(ow, cw)] > 0.5
+            if m.any():
+                kept.append((j, float(s), m))
+        return kept
+
+    @staticmethod
+    def _coco_entry(image_id, score: float, m: np.ndarray, oh: int,
+                    ow: int) -> dict:
+        """One COCO results entry at the original size: the mask zero-padded
+        back to (oh, ow) where the canvas cap cropped it."""
+        if m.shape != (oh, ow):
+            m = np.pad(m, ((0, oh - m.shape[0]), (0, ow - m.shape[1])))
+        return {"image_id": image_id, "category_id": 1, "score": score,
+                "segmentation": mask_to_rle(m)}
+
+    @torch.inference_mode()
+    def predict_paths(self, paths, out_dir: str = "",
+                      results_path: str = "") -> list[dict]:
+        """Image files (JPEG, PNG) in; per input one labeled-instance PNG at
+        its original size under ``out_dir`` (default
+        ``infer.output_dir``), named by its stem (made unique), and one
+        summary ``{"path", "instances", "scores"}``. ``results_path``:
+        also a COCO-format results JSON, one entry per kept instance
+        (``category_id`` 1, the score, the compressed RLE at the original
+        size; ``image_id`` the stem, as an int where it is all digits),
+        its path checked writable before any inference. Batches of
+        ``infer.batch_size``; a short last batch is padded with its first
+        image, so every batch has one shape."""
+        cfg = self.cfg
+        size = cfg.model.image_size
+        bs = cfg.infer.batch_size
+        decoder = get_decoder(cfg.data.decode_backend)
+        all_names = _unique_stems(paths)
+        results: list[dict] = []
+        coco_results: list[dict] = []
+        seen_ids: dict = {}
+        if results_path:
+            _probe_writable(results_path)
+        for start in range(0, len(paths), bs):
+            chunk = [str(p) for p in paths[start:start + bs]]
+            n_real = len(chunk)
+            imgs, hws = decoder.decode_letterbox_batch(chunk, size)
+            idx = [i if i < n_real else 0 for i in range(bs)]
+            orig_hw = hws[idx].astype(np.int32)
+            batch = {"orig_hw": orig_hw, "num_real": n_real,
+                     "valid_hw": np.array(
+                         [letterbox_params(int(h), int(w), size)
+                          for h, w in orig_hw], np.int32)}
+            masks, scores, _ = self.predict_batch(self._upload(imgs[idx]))
+            full = self.full_res_masks(masks)
+            (scores_h,) = self._fetch(scores)
+            kept_all = self._export_batch(
+                start // bs, batch, full, scores_h,
+                names=all_names[start:start + bs], out_dir=out_dir)
+            for i, kept in enumerate(kept_all):
+                results.append({"path": chunk[i], "instances": len(kept),
+                                "scores": [s for _, s, _ in kept]})
+                if not results_path:
+                    continue
+                stem = os.path.splitext(os.path.basename(chunk[i]))[0]
+                image_id = int(stem) if stem.isdecimal() else stem
+                if seen_ids.setdefault(image_id, chunk[i]) != chunk[i]:
+                    warnings.warn(
+                        f"duplicate COCO image_id {image_id!r}: {chunk[i]!r} "
+                        f"and {seen_ids[image_id]!r}: their results merge "
+                        f"under one id")
+                oh, ow = int(orig_hw[i][0]), int(orig_hw[i][1])
+                coco_results.extend(self._coco_entry(image_id, s, m, oh, ow)
+                                    for _, s, m in kept)
+        if results_path:
+            with open(results_path, "w") as f:
+                json.dump(coco_results, f)
+        return results
 
     # --- evaluation ---------------------------------------------------------
 
@@ -414,75 +600,112 @@ class Inferencer:
         call when no batch was drained before the last was queued) and
         ``num_images``; prints ``[eval] {json}``. Batch b's outputs are
         copied to the host as soon as the device finishes them, while the
-        host reads up to ``2 * data.prefetch_depth`` batches ahead."""
+        host reads up to ``2 * data.prefetch_depth`` batches ahead.
+
+        ``infer.save_png``: each image's kept instances as a labeled PNG
+        at its original size in ``infer.output_dir``
+        (``png_ms_per_batch``). ``results_path``: every kept instance as a
+        COCO results entry (``dataset.image_id`` ids; ``num_results``).
+        The time of both stays out of ``infer_ms_per_batch``. ``profile``:
+        a ``torch.profiler`` trace of the loop in ``profile_dir``."""
         cfg = self.cfg
-        if results_path:
-            raise NotImplementedError(
-                "results_path (the COCO-RLE results export) not yet ported")
-        if cfg.infer.save_png:
-            raise NotImplementedError("infer.save_png not yet ported")
-        if cfg.profile:
-            raise NotImplementedError("profile (a trace of evaluate) not yet "
-                                      "ported; use torch.profiler around it")
         dataset = dataset or make_dataset(cfg.data, split="val")
         ap_orig = cfg.infer.ap_at_original
         if ap_orig and not hasattr(dataset, "get_orig_masks"):
             raise ValueError(
                 f"{type(dataset).__name__} provides no get_orig_masks; "
                 f"original-resolution AP needs native-resolution GT")
+        save_png = cfg.infer.save_png
+        coco_results: list[dict] = []
+        if results_path:
+            _probe_writable(results_path)
+            id_of = getattr(dataset, "image_id", int)
+        export = save_png or bool(results_path)
         acc = EvalAccumulator(wf=cfg.infer.wf)
         cuda = self.device.type == "cuda"
         lag = max(1, int(cfg.data.prefetch_depth) * 2)
         pending: deque = deque()
         n_batches = 0
         t_steady = None
+        png_ms = png_at_steady = 0.0
 
         def drain_one():
-            nonlocal n_batches, t_steady
-            num_real, host, ready = pending.popleft()
+            nonlocal n_batches, t_steady, png_ms, png_at_steady
+            bi, batch, host, full, ready = pending.popleft()
             if ready is not None:
                 ready.synchronize()
+            num_real = int(batch["num_real"])
             acc.add_batch(num_real, *(host[k].numpy() for k in _FETCHED))
             n_batches += 1
+            if export:  # postprocessing I/O, timed apart
+                tp = time.perf_counter()
+                kept_all = self._export_batch(bi, batch, full,
+                                              host["scores"].numpy(),
+                                              pngs=save_png)
+                for i, kept in enumerate(kept_all if results_path else ()):
+                    iid = id_of(int(batch["index"][i]))
+                    oh = int(batch["orig_hw"][i][0])
+                    ow = int(batch["orig_hw"][i][1])
+                    coco_results.extend(self._coco_entry(iid, s, m, oh, ow)
+                                        for _, s, m in kept)
+                png_ms += (time.perf_counter() - tp) * 1000
             if t_steady is None:  # the first batch pays the set-up
                 t_steady = time.perf_counter()
+                png_at_steady = png_ms
 
-        t0 = time.perf_counter()
-        for bi, batch in enumerate(iter_epoch(
-                dataset, cfg.infer.batch_size, shuffle=False, seed=0,
-                drop_last=False)):
-            if max_batches and bi >= max_batches:
-                break
-            gm = batch["masks"]
-            if cfg.data.pack_masks:
-                gm = pack_masks_host(gm)
-            res, full, sal = self._eval_batch(
-                self._upload(batch["image"]), self._upload(gm),
-                self._upload(batch["valid"]), self._upload(batch["valid_hw"]))
-            if ap_orig:
-                res.update(self._orig_frame_eval(full, sal, batch, dataset))
-            del full, sal
-            host = {k: res[k].to("cpu", non_blocking=cuda) for k in _FETCHED}
-            ready = torch.cuda.Event() if cuda else None
-            if ready is not None:
-                ready.record()
-            pending.append((int(batch["num_real"]), host, ready))
-            while len(pending) > lag:
+        with maybe_trace(cfg.profile, cfg.profile_dir):
+            t0 = time.perf_counter()
+            for bi, batch in enumerate(iter_epoch(
+                    dataset, cfg.infer.batch_size, shuffle=False, seed=0,
+                    drop_last=False)):
+                if max_batches and bi >= max_batches:
+                    break
+                gm = batch["masks"]
+                if cfg.data.pack_masks:
+                    gm = pack_masks_host(gm)
+                res, full, sal = self._eval_batch(
+                    self._upload(batch["image"]), self._upload(gm),
+                    self._upload(batch["valid"]),
+                    self._upload(batch["valid_hw"]))
+                if ap_orig:
+                    res.update(self._orig_frame_eval(full, sal, batch,
+                                                     dataset))
+                del sal
+                host = {k: res[k].to("cpu", non_blocking=cuda)
+                        for k in _FETCHED}
+                ready = torch.cuda.Event() if cuda else None
+                if ready is not None:
+                    ready.record()
+                pending.append((bi, batch, host, full if export else None,
+                                ready))
+                del full
+                while len(pending) > lag:
+                    drain_one()
+            while pending:
                 drain_one()
-        while pending:
-            drain_one()
-        t_end = time.perf_counter()
+            t_end = time.perf_counter()
 
         metrics = acc.metrics()
         if n_batches:
             if n_batches > lag:
-                per_batch = (t_end - t_steady) * 1000 / (n_batches - 1)
+                window = n_batches - 1
+                spent = (t_end - t_steady) * 1000 - (png_ms - png_at_steady)
+                png_spent = png_ms - png_at_steady
             else:  # all queued before the first drain: the whole call
-                per_batch = (t_end - t0) * 1000 / n_batches
+                window = n_batches
+                spent = (t_end - t0) * 1000 - png_ms
+                png_spent = png_ms
+            per_batch = spent / window
             metrics["infer_ms_per_batch"] = round(per_batch, 2)
             metrics["imgs_per_s"] = round(
                 cfg.infer.batch_size / max(per_batch / 1000, 1e-9), 1)
+            if save_png:
+                metrics["png_ms_per_batch"] = round(png_spent / window, 2)
         metrics["num_images"] = acc.n_img
+        if results_path:
+            with open(results_path, "w") as f:
+                json.dump(coco_results, f)
+            metrics["num_results"] = len(coco_results)
         print("[eval] " + json.dumps(metrics), flush=True)
         return metrics
 

@@ -7,13 +7,21 @@ record with its time since the logger started (``t``) as one JSON line,
 flushed per record. Floats are rounded to 6 places and numpy or torch
 scalars become Python numbers, as in the JAX package. TensorBoard event
 files are not ported: the card's machine has no ``tensorboard``.
+
+``save_mask_pngs`` writes one image's predicted instances as one labeled
+8-bit PNG (``data/png.py``), the JAX package's debug dump.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from typing import IO, Any
+
+import numpy as np
+
+from basi_tpu_torch.data.png import write_png
 
 
 class MetricLogger:
@@ -50,3 +58,20 @@ class MetricLogger:
         if self._fh:
             self._fh.close()
             self._fh = None
+
+
+def save_mask_pngs(out_dir: str, name: str, masks, scores,
+                   score_threshold: float = 0.1) -> None:
+    """``<out_dir>/<name>.png``: slot i's mask (> 0.5) painted with
+    ``(i + 1) * max(1, 255 // K)`` where its score reaches
+    ``score_threshold``, later slots over earlier ones, 0 elsewhere."""
+    os.makedirs(out_dir, exist_ok=True)
+    masks = np.asarray(masks)
+    scores = np.asarray(scores)
+    combined = np.zeros(masks.shape[-2:], np.uint8)
+    step = max(1, 255 // max(1, len(masks)))
+    for i, (m, s) in enumerate(zip(masks, scores)):
+        if s < score_threshold:
+            continue
+        combined[m > 0.5] = (i + 1) * step
+    write_png(os.path.join(out_dir, f"{name}.png"), combined)

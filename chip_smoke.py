@@ -129,6 +129,39 @@
    frame, the paste not the identity) equal to the same EMA weights as a
    state dict. The f32 card-vs-CPU eval at non-square originals is phase
    7's, which runs the preset's scale now.
+9. Image files (in a temporary directory removed afterwards), from the
+   JPEG fixtures of ``tests/test_torch_fixtures/`` (made with Pillow, with
+   the JAX package's decodes of them: 37 x 45 baseline 4:4:4, 4:2:0, grey
+   and progressive; photographs at 640 x 480 baseline 4:2:0, 640 x 427
+   progressive 4:2:0 and 612 x 612 baseline 4:4:4) and PNGs written with
+   ``write_png`` (rows filtered as libpng filters them by default). The
+   decoder (``data/native.py``) prints its JPEG route and build; every
+   JPEG fixture decodes to the JAX package's digest on the libjpeg route,
+   within ``NVJPEG_MAX_ABS`` (3) levels a value and ``NVJPEG_MEAN_ABS``
+   (0.1) on average on the nvjpeg route (nvJPEG's IDCT; libjpeg's
+   upsampling and colour conversion in numpy), and the letterboxes of each reference
+   decode to 64 and 512 give the reference's digests; every PNG reads
+   back exactly; decode + letterbox imgs/s one by one and batched, for
+   the PNG scenes, the photographs as JPEG and the same photographs as
+   PNG. ``predict_paths`` at ``val_v4-8_ap`` (bf16, batch 8) on 16 PNG
+   scenes from 300 x 200 to 1100 x 700, the three photographs and the
+   grey JPEG (20 files: the last batch of 8 is padded) with a results
+   file and PNGs: 9 ``upsample_int`` and 1 ``upsample_sigmoid`` a batch,
+   every PNG at its image's size, one RLE entry per kept slot equal to
+   that slot's pasted mask > 0.5, and the wall clock of a second call.
+   The same in f32 on 4 files on the card and on the CPU: scores and
+   pasted probabilities within 1e-3, RLE masks equal but where a
+   probability lies within 1e-3 of 0.5. ``evaluate`` of
+   ``bench_accuracy`` (batch 16, the original frame, the native-GT cache
+   built first) on an ILSO-style folder of 32 scenes (scale 1.5) with
+   labeled mask PNGs, every fourth a palette PNG whose colours are all
+   one grey: in f32 on the card and on the CPU, AP/AR equal and saliency
+   means within 1e-4, and one batch of 4 held as phase 7 holds its own
+   (masks, IoUs, AP at low IoU equal and not 0); then bf16 with 9
+   ``upsample_int`` and 1 ``upsample_sigmoid`` a batch, beside phase 7's
+   imgs/s, and the same on 32 photographs as JPEG files and as PNG
+   files (the same pixels and masks), with ``FolderDataset.get_batch``
+   timed for 16 images of each folder.
 
 Any failure raises and exits non-zero; so does a machine without CUDA or
 a directory without the package. The line before the last is the
@@ -159,6 +192,8 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1573,7 +1608,8 @@ def run_eval(dev, gen) -> dict:
     without the cache (GT drawn per batch): every metric finite, 64 images, 9 ``upsample_int`` and 1
     ``upsample_sigmoid`` launches per batch, nothing else, and the same
     metrics without the cache. Then one batch under ``torch.profiler``.
-    Returns the seeded weights it evaluated."""
+    Returns the seeded weights it evaluated and its rate with the cache
+    and ``wf`` on (phase 9 sets the folder's beside it)."""
     import shutil
     import tempfile
 
@@ -1584,7 +1620,7 @@ def run_eval(dev, gen) -> dict:
 
     gt_dir = tempfile.mkdtemp(prefix="basi_native_gt_")
     try:
-        results, sd = {}, None
+        results, walls, sd = {}, {}, None
         cfg = get_config("bench_accuracy", EVAL_OVERRIDES)
         t0 = time.perf_counter()
         NativeGTCache(make_dataset(cfg.data, split="val"), gt_dir)
@@ -1628,17 +1664,20 @@ def run_eval(dev, gen) -> dict:
                      f"expected 9 upsample_int and 1 upsample_sigmoid launch "
                      f"per eval batch x {n_b}, nothing else; got {launches}")
             results[(wf, bool(cache))] = (inf, ds, m)
+            walls[(wf, bool(cache))] = wall
         _require(_metrics_only(results[("true", False)][2])
                  == _metrics_only(results[("true", True)][2]),
                  "evaluate without the native-GT cache gave other metrics")
         print("evaluate without the native-GT cache: the same metrics")
-        inf, ds, _ = results[("true", True)]
+        inf, ds, m = results[("true", True)]
+        rate = (f"{EVAL_IMAGES / walls[('true', True)]:.1f} imgs/s by the "
+                f"wall clock, imgs_per_s {m['imgs_per_s']}")
         profile_eval_batch(inf, ds)
         del results, inf
     finally:
         shutil.rmtree(gt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return sd
+    return sd, rate
 
 
 def profile_eval_batch(inf, ds) -> None:
@@ -1718,8 +1757,10 @@ def _iou_bound(p_d, p_c, gt_areas):
     return d[:, :, None] / union + 1e-5, d
 
 
-def check_eval_f32(dev, sd) -> None:
-    """Phase 7, card against CPU in f32: one batch of 4 through
+def check_eval_f32(dev, sd, overrides=None, label: str = "f32 eval"
+                   ) -> None:
+    """Phase 7 (and phase 9 on a folder, ``overrides`` naming it), card
+    against CPU in f32: one batch of 4 through
     ``evaluate(max_batches=1)`` on each: saliency means within 1e-4, AP/AR
     equal. The batch's full-resolution masks agree within 1e-4, and pixels
     binarize apart only within that difference of ``mask_threshold`` (in
@@ -1735,7 +1776,7 @@ def check_eval_f32(dev, sd) -> None:
     from basi_tpu_torch.infer import Inferencer, _canvas_side
     from basi_tpu_torch.ops.paste import paste_masks_batch
 
-    cfg = get_config("bench_accuracy", EVAL_OVERRIDES + [
+    cfg = get_config("bench_accuracy", (overrides or EVAL_OVERRIDES) + [
         "infer.batch_size=4", "model.dtype=float32", "infer.dtype=float32",
         "infer.native_gt_cache="])
     thr, size = cfg.infer.mask_threshold, cfg.model.image_size
@@ -1765,10 +1806,11 @@ def check_eval_f32(dev, sd) -> None:
     full_err = float((card["probs"][0] - cpu["probs"][0]).abs().max())
     _require(set(m_d) == set(m_c) and m_d["num_images"] == 4,
              "card and CPU give other metric keys")
-    _require(sal_err <= 1e-4, "f32 eval: a saliency metric beyond 1e-4")
+    _require(sal_err <= 1e-4, f"{label}: a saliency metric beyond 1e-4")
     _require(all(m_d[k] == m_c[k] for k in m_c if k[:2] in ("AP", "AR", "mA")),
-             "f32 eval: AP/AR differ between card and CPU")
-    _require(full_err <= 1e-4, "f32 eval: full-resolution masks beyond 1e-4")
+             f"{label}: AP/AR differ between card and CPU")
+    _require(full_err <= 1e-4,
+             f"{label}: full-resolution masks beyond 1e-4")
     valid = batch["valid"]
     for f, frame in enumerate(("letterbox", "original frame")):
         p_d, p_c = card["probs"][f], cpu["probs"][f]
@@ -1784,7 +1826,7 @@ def check_eval_f32(dev, sd) -> None:
                 acc.add(side["scores"][i].numpy(), side["iou"][f][i].numpy(),
                         valid[i], gt_areas=side["areas"][f][i].numpy())
             aps.append(acc.ap())
-        print(f"f32 eval card vs cpu, {frame} (1 batch of 4): masks max diff "
+        print(f"{label} card vs cpu, {frame} (1 batch of 4): masks max diff "
               f"{err:.2e}, {int(apart.sum())} pixels in {int((d > 0).sum())} "
               f"of {d.numel()} slots binarize apart (all within it of the "
               f"threshold: {near}); IoU max diff {float(gap.max()):.2e}, "
@@ -1793,16 +1835,16 @@ def check_eval_f32(dev, sd) -> None:
               f"{float((gap * (d == 0)[..., None]).max()):.2e} "
               f"(largest IoU {float(cpu['iou'][f].max()):.4f}); AP at low "
               f"IoU, card {aps[0]}")
-        _require(near, f"f32 eval, {frame}: pixels binarized apart away from "
+        _require(near, f"{label}, {frame}: pixels binarized apart away from "
                  "the threshold")
         _require(bool((gap <= bound).all()),
-                 f"f32 eval, {frame}: an IoU beyond 1e-5 plus its slot's "
+                 f"{label}, {frame}: an IoU beyond 1e-5 plus its slot's "
                  "pixels binarized apart over its union")
-        _require(aps[0] == aps[1], f"f32 eval, {frame}: AP at low IoU "
+        _require(aps[0] == aps[1], f"{label}, {frame}: AP at low IoU "
                  f"differs, card {aps[0]} cpu {aps[1]}")
         _require(any(v > 0 for v in aps[0].values()),
-                 f"f32 eval, {frame}: AP at low IoU is 0, checks nothing")
-    print(f"f32 evaluate card vs cpu: saliency max diff {sal_err:.2e}; card "
+                 f"{label}, {frame}: AP at low IoU is 0, checks nothing")
+    print(f"{label} card vs cpu: saliency max diff {sal_err:.2e}; card "
           f"{json.dumps(_metrics_only(m_d))}")
 
 
@@ -2119,6 +2161,506 @@ def check_recipe(dev) -> dict:
     return launches
 
 
+# --- phase 9: image files -------------------------------------------------------
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "test_torch_fixtures"
+# 16 PNG scenes from 300 x 200 to 1100 x 700 (H x W; the largest batch's
+# paste canvas is 1536 x 1024), then the three photographs and the grey
+# 37 x 45 JPEG: 20 files, so the last batch of 8 is padded
+FILE_PNG_HW = [(300 + 800 * i // 15, 200 + 500 * i // 15) for i in range(16)]
+FILE_PHOTOS = ("photo_420", "photo_progressive", "photo_444")
+FILE_EVAL_IMAGES = 32
+# nvJPEG's IDCT against libjpeg's on the JPEG fixtures, as
+# tests/test_torch_gpu.py holds it: a component 1 level apart moves R by up
+# to 1 + 1.402 and B by up to 1 + 1.772 levels, so 3 at most
+NVJPEG_MAX_ABS = 3
+NVJPEG_MEAN_ABS = 0.1
+
+
+def jpeg_fixtures() -> dict:
+    """``jpeg.json`` of the JPEG fixtures, each entry with its file's
+    ``bytes`` and the JAX decoder's decode (``ref``) added."""
+    from basi_tpu_torch.data.png import read_png
+
+    fixtures = json.loads((FIXTURES / "jpeg.json").read_text())
+    for fx in fixtures.values():
+        fx["bytes"] = (FIXTURES / fx["file"]).read_bytes()
+        fx["ref"] = read_png(FIXTURES / fx["reference"])[0]
+    return fixtures
+
+
+def _labels(rng, h: int, w: int) -> np.ndarray:
+    """A labeled mask of 2 to 6 ellipses, ids 1, 2, ... (later ones on
+    top)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    lab = np.zeros((h, w), np.uint8)
+    for i in range(rng.randint(2, 7)):
+        cy, cx = rng.uniform(0.15, 0.85) * h, rng.uniform(0.15, 0.85) * w
+        ry, rx = rng.uniform(0.05, 0.25) * h, rng.uniform(0.05, 0.25) * w
+        lab[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = i + 1
+    return lab
+
+
+def write_file_fixtures(root: str, jpegs: dict) -> tuple[list, dict]:
+    """The predict folder (``FILE_PNG_HW`` PNG scenes, the photographs and
+    the grey JPEG) and three ILSO-style folders of ``FILE_EVAL_IMAGES``
+    images with labeled mask PNGs: ``scenes`` (``bench_accuracy``'s, scale
+    1.5, every fourth mask a palette PNG whose colours are all one grey:
+    the ids survive only as indices), and ``photos_jpeg`` and
+    ``photos_png``, the photographs in turn as JPEG files and as PNGs of
+    their reference decodes, with the same masks. Returns (predict paths,
+    folder roots by name)."""
+    import os
+
+    from basi_tpu_torch.data.datasets import SyntheticDataset
+    from basi_tpu_torch.data.png import write_png
+
+    pred = os.path.join(root, "predict")
+    os.makedirs(pred)
+    scenes = SyntheticDataset(n=64, image_size=512, max_instances=8, seed=5)
+    paths = [os.path.join(pred, f"{i:06d}.png") for i in range(len(FILE_PNG_HW))]
+    for name in FILE_PHOTOS + ("grey",):
+        paths.append(os.path.join(pred, f"jpeg_{name}.jpg"))
+        with open(paths[-1], "wb") as f:
+            f.write(jpegs[name]["bytes"])
+    roots = {k: os.path.join(root, k)
+             for k in ("scenes", "photos_jpeg", "photos_png")}
+    for r in roots.values():
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(r, sub))
+    ds = SyntheticDataset(n=FILE_EVAL_IMAGES, image_size=512,
+                          max_instances=8, seed=1, orig_max_scale=1.5)
+    grey = np.full((9, 3), 128, np.uint8)
+    grey[0] = 0
+    rng = np.random.RandomState(SEED)
+    labels = [_labels(rng, *jpegs[FILE_PHOTOS[i % len(FILE_PHOTOS)]]["shape"])
+              for i in range(FILE_EVAL_IMAGES)]
+
+    def predict_scene(i):
+        write_png(paths[i], scenes._scene(i, *FILE_PNG_HW[i])[0])
+
+    def eval_image(i):
+        img, masks, _ = ds._scene(i, *ds._dims(i))
+        lab = (masks * np.arange(1, 9, dtype=np.uint8)[:, None, None]).max(0)
+        d = roots["scenes"]
+        write_png(os.path.join(d, "images", f"{i:04d}.png"), img)
+        write_png(os.path.join(d, "masks", f"{i:04d}.png"), lab,
+                  palette=grey if i % 4 == 0 else None)
+        fx = jpegs[FILE_PHOTOS[i % len(FILE_PHOTOS)]]
+        with open(os.path.join(roots["photos_jpeg"], "images",
+                               f"{i:04d}.jpg"), "wb") as f:
+            f.write(fx["bytes"])
+        write_png(os.path.join(roots["photos_png"], "images", f"{i:04d}.png"),
+                  fx["ref"])
+        for k in ("photos_jpeg", "photos_png"):
+            write_png(os.path.join(roots[k], "masks", f"{i:04d}.png"),
+                      labels[i])
+
+    # zlib and numpy's large operations release the GIL
+    with ThreadPoolExecutor(8) as pool:
+        jobs = [pool.submit(predict_scene, i) for i in range(len(FILE_PNG_HW))]
+        jobs += [pool.submit(eval_image, i) for i in range(FILE_EVAL_IMAGES)]
+        for job in jobs:
+            job.result()
+    return paths, roots
+
+
+def _decode_rates(dec, paths: list) -> tuple[float, float]:
+    """(one by one, batched) decode + letterbox to 512 imgs/s of
+    ``paths``, each the best of 3 rounds (the host is shared)."""
+    dec.decode_letterbox_batch(paths, 512)  # warm: the thread pool
+    single, batch = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for p in paths:
+            dec.decode_letterbox(p, 512)
+        single.append(len(paths) / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        dec.decode_letterbox_batch(paths, 512)
+        batch.append(len(paths) / (time.perf_counter() - t0))
+    return max(single), max(batch)
+
+
+def check_decoder(paths: list, jpegs: dict, roots: dict) -> dict:
+    """Phase 9: the decoder's build, every JPEG fixture against the JAX
+    package's decode (digests on the libjpeg route, ``NVJPEG_MAX_ABS`` /
+    ``NVJPEG_MEAN_ABS`` on the nvjpeg route), the letterboxes to 64 and
+    512 of each reference decode bit for bit, every PNG scene read back
+    exactly; then decode + letterbox imgs/s one by one and through the
+    batch API, at 512, for the PNG scenes, the photographs as JPEG and
+    the same photographs as PNG."""
+    import hashlib
+    import os
+
+    from basi_tpu_torch.data import native as N
+    from basi_tpu_torch.data.datasets import SyntheticDataset
+    from basi_tpu_torch.data.png import read_png
+
+    t0 = time.perf_counter()
+    route = N.route()
+    N.library()
+    info = N.build_info
+    print(f"decoder: JPEG route {route}, {info['path']} ("
+          f"{'built' if info['compiled'] else 'cached'} in "
+          f"{time.perf_counter() - t0:.2f} s, g++ {info['seconds']:.2f} s)")
+    errs = {}
+    for name, fx in jpegs.items():
+        got, ref = N.decode_jpeg(fx["bytes"]), fx["ref"]
+        _require(got.shape == ref.shape == (*fx["shape"], 3),
+                 f"JPEG {name}: shape {got.shape}")
+        diff = np.abs(got.astype(np.int32) - ref)
+        errs[name] = (int(diff.max()), float(diff.mean()),
+                      float((diff > 1).mean()))
+        if route == "libjpeg":
+            _require(hashlib.sha256(got.tobytes()).hexdigest() == fx["sha256"],
+                     f"JPEG {name}: not the reference decode")
+        else:
+            _require(diff.max() <= NVJPEG_MAX_ABS
+                     and diff.mean() <= NVJPEG_MEAN_ABS,
+                     f"JPEG {name}: nvJPEG {errs[name][:2]} beyond "
+                     f"({NVJPEG_MAX_ABS}, {NVJPEG_MEAN_ABS})")
+        for size in (64, 512):
+            lb = N.letterbox_rgb(ref, size)
+            _require(hashlib.sha256(lb.tobytes()).hexdigest()
+                     == fx[f"sha256_lb{size}"],
+                     f"JPEG {name}: the letterbox to {size} is not the "
+                     f"reference's")
+    print(f"JPEG fixtures against the JAX decoder's decodes (max and mean "
+          f"abs diff, share of values more than 1 apart): {errs}")
+    scenes = SyntheticDataset(n=64, image_size=512, max_instances=8, seed=5)
+    for i, (h, w) in enumerate(FILE_PNG_HW):
+        img, _, _ = scenes._scene(i, h, w)
+        got, mode = read_png(paths[i])
+        _require(mode == "RGB" and np.array_equal(got, img),
+                 f"PNG {paths[i]} does not read back")
+        _require(np.array_equal(N.decode_rgb(paths[i]), img),
+                 f"the decoder misreads {paths[i]}")
+    dec = N.NativeDecoder()
+    rates = {}
+    for key, what, files in (
+            ("png_scenes", "16 PNG scenes 300x200-1100x700", paths[:16]),
+            ("jpeg_photos", "32 JPEG photographs 640x480/640x427/612x612",
+             roots["photos_jpeg"]),
+            ("png_photos", "the same 32 photographs as PNG",
+             roots["photos_png"])):
+        if isinstance(files, str):
+            d = os.path.join(files, "images")
+            files = [os.path.join(d, f) for f in sorted(os.listdir(d))]
+        rates[key] = _decode_rates(dec, files)
+        print(f"decode + letterbox to 512, {what}: "
+              f"{rates[key][0]:.1f} imgs/s one by one, {rates[key][1]:.1f} "
+              f"through the batch API (best of 3)")
+    return {"route": route, "errs": errs, "rates": rates}
+
+
+def _capture_exports(inf) -> list:
+    """Wrap ``inf._export_batch`` to keep each batch's slot scores and
+    pasted masks > 0.5 (host copies) for the checks."""
+    kept = []
+    export = inf._export_batch
+
+    def wrapped(bi, batch, full, scores, **kw):
+        pasted, _, _ = inf._paste_batch(batch, full)
+        kept.append(((pasted > 0.5).cpu().numpy(), scores.copy()))
+        del pasted
+        return export(bi, batch, full, scores, **kw)
+
+    inf._export_batch = wrapped
+    return kept
+
+
+def _image_id(path: str):
+    """``predict_paths``'s COCO id of a file: its stem, an int if all
+    digits."""
+    import os
+
+    stem = os.path.splitext(os.path.basename(path))[0]
+    return int(stem) if stem.isdecimal() else stem
+
+
+def _entries_by_image(res_path: str, paths: list) -> list:
+    with open(res_path) as f:
+        entries = json.load(f)
+    return [[e for e in entries if e["image_id"] == _image_id(p)]
+            for p in paths]
+
+
+def run_predict_paths(dev, cfg, sd, paths: list, root: str) -> dict:
+    """Phase 9: ``predict_paths`` at full width (bf16, batch 8) on the 20
+    files with a results file and PNGs: 9 ``upsample_int`` and 1
+    ``upsample_sigmoid`` launches a batch and nothing else; every PNG at
+    its image's original size; one RLE entry per kept slot (score at the
+    threshold, pasted mask not empty), in slot order, each decoding to
+    that slot's pasted mask > 0.5 with its score. Then the wall clock of
+    a second call."""
+    import os
+
+    from basi_tpu_torch.data.coco import rle_decompress, rle_to_mask
+    from basi_tpu_torch.data.native import image_size
+    from basi_tpu_torch.data.png import read_png
+    from basi_tpu_torch.infer import Inferencer
+
+    inf = Inferencer(cfg, state_dict=sd)  # the default device
+    _require(inf.device == dev, f"Inferencer ran on {inf.device}")
+    bs = cfg.infer.batch_size
+    n_b = -(-len(paths) // bs)
+    out_dir = os.path.join(root, "pngs")
+    res_path = os.path.join(root, "results.json")
+    captured = _capture_exports(inf)
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    summary = inf.predict_paths(paths, out_dir=out_dir, results_path=res_path)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = _kernel_counts()
+    print(f"predict_paths, val_v4-8_ap ({cfg.infer.dtype or cfg.model.dtype}"
+          f", batch {bs}): {len(paths)} files in {n_b} batches in "
+          f"{first:.3f} s (first call, set-up and the checks' extra paste "
+          f"included); launches {launches}")
+    _require(launches == dict(_zero_counts(), upsample_int=9 * n_b,
+                              upsample_sigmoid=n_b),
+             f"expected 9 upsample_int and 1 upsample_sigmoid launch per "
+             f"batch x {n_b}, nothing else; got {launches}")
+    thr = cfg.infer.score_threshold
+    n_kept = 0
+    for i, (p, s, got) in enumerate(zip(paths, summary,
+                                        _entries_by_image(res_path, paths))):
+        oh, ow = image_size(p)
+        stem = os.path.splitext(os.path.basename(p))[0]
+        png, _ = read_png(os.path.join(out_dir, stem + ".png"))
+        _require(png.shape == (oh, ow), f"{stem}.png is {png.shape}, the "
+                 f"image {oh}x{ow}")
+        on, scores = captured[i // bs][0][i % bs], captured[i // bs][1][i % bs]
+        kept = [j for j, sc in enumerate(scores)
+                if sc >= thr and sc > 0 and on[j, :oh, :ow].any()]
+        _require(len(got) == s["instances"] == len(kept),
+                 f"{stem}: {len(got)} entries, {s['instances']} instances, "
+                 f"{len(kept)} kept slots")
+        for e, j in zip(got, kept):
+            _require(e["segmentation"]["size"] == [oh, ow],
+                     f"{stem}: an RLE of size {e['segmentation']['size']}")
+            m = rle_to_mask(rle_decompress(e["segmentation"]["counts"]),
+                            oh, ow)
+            _require(np.array_equal(m, on[j, :oh, :ow])
+                     and e["score"] == float(scores[j]),
+                     f"{stem}: entry of slot {j} is not its pasted mask")
+        n_kept += len(kept)
+    _require(n_kept > 0, "predict_paths kept no instance: checks nothing")
+    del inf._export_batch
+    t0 = time.perf_counter()
+    inf.predict_paths(paths, out_dir=out_dir, results_path=res_path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"  {n_kept} kept instances, each RLE entry its slot's pasted "
+          f"mask, every PNG at its image's size; second call {wall:.3f} s "
+          f"= {len(paths) / wall:.2f} imgs/s by the wall clock (decode, "
+          f"forward, paste to canvases up to 1536x1024, PNG and RLE "
+          f"encode)")
+    del inf
+    torch.cuda.empty_cache()
+    return {"imgs_per_s": len(paths) / wall, "first_s": first}
+
+
+def check_predict_f32(dev, sd, paths: list, root: str) -> None:
+    """Phase 9, card against CPU in f32 on 4 files (one batch): the same
+    kept slots and scores within 1e-3, the pasted probabilities within
+    1e-3, and every RLE mask equal but at pixels where a slot's pasted
+    probability lies within 1e-3 of 0.5 on either side."""
+    import os
+
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.data.coco import rle_decompress, rle_to_mask
+    from basi_tpu_torch.data.datasets import letterbox_params
+    from basi_tpu_torch.data.native import NativeDecoder
+    from basi_tpu_torch.infer import Inferencer
+
+    cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic",
+                                     "infer.batch_size=4",
+                                     "infer.dtype=float32"])
+    four = [paths[0], paths[7], paths[16], paths[-1]]  # PNG x 2, photo, grey
+    imgs, hws = NativeDecoder().decode_letterbox_batch(four, 512)
+    batch = {"orig_hw": hws, "num_real": 4, "valid_hw": np.array(
+        [letterbox_params(int(h), int(w), 512) for h, w in hws], np.int32)}
+    sides = []
+    for device in (dev, "cpu"):
+        inf = Inferencer(cfg, device=device, state_dict=sd)
+        res_path = os.path.join(root, f"f32_{device}.json")
+        summary = inf.predict_paths(four, out_dir=os.path.join(
+            root, f"f32_{device}"), results_path=res_path)
+        with torch.inference_mode():
+            masks, _, _ = inf.predict_batch(imgs)
+            pasted, _, _ = inf._paste_batch(batch, inf.full_res_masks(masks))
+        sides.append((summary, _entries_by_image(res_path, four),
+                      pasted.cpu().numpy()))
+        del inf, masks, pasted
+    (s_d, e_d, p_d), (s_c, e_c, p_c) = sides
+    err = float(np.abs(p_d - p_c).max())
+    near = ((np.abs(p_d - 0.5) <= 1e-3) | (np.abs(p_c - 0.5) <= 1e-3)).any(1)
+    _require([s["instances"] for s in s_d] == [s["instances"] for s in s_c],
+             "f32 predict_paths: other instance counts on the card")
+    score_err = max([abs(a - b) for x, y in zip(s_d, s_c)
+                     for a, b in zip(x["scores"], y["scores"])] + [0.0])
+    _require(score_err <= 1e-3, f"f32 predict_paths: scores {score_err}")
+    _require(err <= 1e-3, f"f32 pasted probabilities differ by {err}")
+    apart = n = 0
+    for i in range(4):
+        for a, b in zip(e_d[i], e_c[i]):
+            h, w = a["segmentation"]["size"]
+            ma = rle_to_mask(rle_decompress(a["segmentation"]["counts"]), h, w)
+            mb = rle_to_mask(rle_decompress(b["segmentation"]["counts"]), h, w)
+            diff = ma != mb
+            apart += int(diff.sum())
+            n += 1
+            _require(not (diff & ~near[i][:h, :w]).any(),
+                     "f32: an RLE pixel apart away from 0.5")
+    _require(n > 0, "f32 predict_paths kept no instance: checks nothing")
+    print(f"f32 predict_paths card vs cpu (4 files): pasted probabilities max "
+          f"diff {err:.2e}, scores {score_err:.2e}, {n} entries, {apart} RLE "
+          f"pixels apart (each within 1e-3 of 0.5)")
+
+
+def _folder_overrides(root: str, gt_dir: str) -> list:
+    return ["data.dataset=folder", f"data.root={root}",
+            "infer.ap_at_original=true", f"infer.native_gt_cache={gt_dir}"]
+
+
+def _time_folder_eval(dev, sd, root: str, gt_dir: str) -> dict:
+    """bf16 ``evaluate`` of ``bench_accuracy`` on one folder, after a warm
+    call and ``FolderDataset.get_batch`` of 16 images timed (3 rounds):
+    every metric finite, ``FILE_EVAL_IMAGES`` images, 9 ``upsample_int``
+    and 1 ``upsample_sigmoid`` launches a batch and nothing else."""
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.data.datasets import make_dataset
+    from basi_tpu_torch.data.native_gt import NativeGTCache
+    from basi_tpu_torch.infer import Inferencer
+
+    cfg = get_config("bench_accuracy", _folder_overrides(root, gt_dir))
+    ds = make_dataset(cfg.data, split="val")
+    _require(type(ds).__name__ == "FolderDataset"
+             and len(ds) == FILE_EVAL_IMAGES, f"the folder dataset {root}")
+    t0 = time.perf_counter()
+    cache = NativeGTCache(ds, gt_dir)
+    _require(cache.on_disk, "the folder's native-GT cache is not on disk")
+    gt_s = time.perf_counter() - t0
+    ds.get_batch(range(16))  # warm
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ds.get_batch(range(16, 32))
+    get_ms = 1000 * (time.perf_counter() - t0) / 3
+    inf = Inferencer(cfg, state_dict=sd)
+    n_b = FILE_EVAL_IMAGES // cfg.infer.batch_size
+    inf.evaluate(make_dataset(cfg.data, split="val"))  # warm
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    m = inf.evaluate(make_dataset(cfg.data, split="val"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    _require(launches == dict(_zero_counts(), upsample_int=9 * n_b,
+                              upsample_sigmoid=n_b),
+             f"folder evaluate: expected 9 upsample_int and 1 "
+             f"upsample_sigmoid per batch x {n_b}; got {launches}")
+    _require(m["num_images"] == FILE_EVAL_IMAGES
+             and all(np.isfinite(v) for v in m.values()),
+             "folder evaluate: non-finite metrics")
+    del inf
+    torch.cuda.empty_cache()
+    return {"gt_s": gt_s, "get_batch_ms": get_ms, "wall_s": wall,
+            "imgs_per_s": FILE_EVAL_IMAGES / wall, "metrics": m,
+            "launches": launches}
+
+
+def run_folder_eval(dev, sd, roots: dict, synthetic_rate) -> dict:
+    """Phase 9: ``evaluate`` of ``bench_accuracy`` on the folders (batch
+    16, the original frame, the native-GT cache built first). On the
+    scenes, f32 on the card and on the CPU over all 32 images (AP/AR
+    equal, saliency means within 1e-4, phase 7's rule) and one batch of
+    4 held as phase 7 holds its own (``check_eval_f32``); then bf16 on
+    each folder (``_time_folder_eval``), the photographs as JPEG beside
+    the same photographs as PNG."""
+    import shutil
+    import tempfile
+
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.data.datasets import make_dataset
+    from basi_tpu_torch.infer import Inferencer
+
+    gt_dirs = {k: tempfile.mkdtemp(prefix=f"basi_{k}_gt_") for k in roots}
+    try:
+        out = {k: _time_folder_eval(dev, sd, roots[k], gt_dirs[k])
+               for k in roots}
+        f32 = _folder_overrides(roots["scenes"], gt_dirs["scenes"]) + [
+            "model.dtype=float32", "infer.dtype=float32"]
+        ms = {}
+        for device in (dev, "cpu"):
+            fcfg = get_config("bench_accuracy", f32)
+            t0 = time.perf_counter()
+            ms[device if device == "cpu" else "card"] = Inferencer(
+                fcfg, device=device, state_dict=sd).evaluate(
+                make_dataset(fcfg.data, split="val"))
+            print(f"  f32 folder evaluate on {device} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        a, b = _metrics_only(ms["card"]), _metrics_only(ms["cpu"])
+        sal_err = max(abs(a[k] - b[k]) for k in b if k.startswith("saliency"))
+        _require(set(a) == set(b) and a["num_images"] == FILE_EVAL_IMAGES,
+                 "f32 folder evaluate: other metric keys on the card")
+        _require(all(a[k] == b[k] for k in b if k[:2] in ("AP", "AR", "mA")),
+                 "f32 folder evaluate: AP/AR differ between card and CPU")
+        _require(sal_err <= 1e-4, f"f32 folder evaluate: a saliency metric "
+                 f"{sal_err} beyond 1e-4")
+        print(f"f32 folder evaluate card vs cpu ({FILE_EVAL_IMAGES} scenes): "
+              f"AP/AR equal, saliency max diff {sal_err:.2e}; card "
+              f"{json.dumps(a)}")
+        check_eval_f32(dev, sd, _folder_overrides(roots["scenes"], ""),
+                       "f32 folder eval")
+        for k, what in (("scenes", "32 PNG scenes (scale 1.5)"),
+                        ("photos_jpeg", "32 JPEG photographs"),
+                        ("photos_png", "the same 32 photographs as PNG")):
+            r = out[k]
+            print(f"folder evaluate, bench_accuracy original frame (bf16, "
+                  f"batch 16, native-GT cache built in {r['gt_s']:.2f} s), "
+                  f"{what}: {r['wall_s']:.3f} s = {r['imgs_per_s']:.1f} "
+                  f"imgs/s by the wall clock; infer_ms_per_batch "
+                  f"{r['metrics']['infer_ms_per_batch']}, imgs_per_s "
+                  f"{r['metrics']['imgs_per_s']}; get_batch of 16 "
+                  f"{r['get_batch_ms']:.1f} ms; launches {r['launches']}")
+        print(f"  (phase 7's synthetic scenes: {synthetic_rate} imgs/s); "
+              f"scenes' metrics {json.dumps(_metrics_only(out['scenes']['metrics']))}")
+    finally:
+        for d in gt_dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_files(dev, gen, synthetic_rate) -> None:
+    """Phase 9: the decoder, ``predict_paths`` and folder ``evaluate``."""
+    import shutil
+    import tempfile
+
+    from basi_tpu_torch.config import get_config
+
+    root = tempfile.mkdtemp(prefix="basi_files_")
+    try:
+        jpegs = jpeg_fixtures()
+        paths, roots = write_file_fixtures(root, jpegs)
+        dec = check_decoder(paths, jpegs, roots)
+        cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"])
+        sd = smoke_weights(cfg, gen)
+        pred = run_predict_paths(dev, cfg, sd, paths, root)
+        check_predict_f32(dev, sd, paths, root)
+        ev = run_folder_eval(dev, sd, roots, synthetic_rate)
+        rates = {k: [round(v, 1) for v in r] for k, r in dec["rates"].items()}
+        print(f"phase 9 summary ({dec['route']}): decode + letterbox imgs/s "
+              f"[one by one, batched] {json.dumps(rates)}; get_batch of 16 "
+              f"ms {json.dumps({k: round(r['get_batch_ms'], 1) for k, r in ev.items()})}; "
+              f"predict_paths {pred['imgs_per_s']:.2f} imgs/s; folder "
+              f"evaluate imgs/s by the wall clock "
+              f"{json.dumps({k: round(r['imgs_per_s'], 1) for k, r in ev.items()})}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -2162,7 +2704,7 @@ def main() -> int:
     for impl in ("xla", "fused"):
         check_f32_step(dev, impl)
     t0 = time.perf_counter()
-    eval_sd = run_eval(dev, gen)
+    eval_sd, eval_rate = run_eval(dev, gen)
     check_eval_f32(dev, eval_sd)
     del eval_sd
     check_paste_sod(dev, gen)
@@ -2172,6 +2714,9 @@ def main() -> int:
     check_recipe(dev)
     print(f"phase 8 (the accuracy recipe's path) took "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_files(dev, gen, eval_rate)
+    print(f"phase 9 (image files) took {time.perf_counter() - t0:.1f} s")
 
     # launches: each kernel's count over the path it serves, read right
     # after that path's run (upsample_int: the xla training path; the BN

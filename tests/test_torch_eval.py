@@ -24,6 +24,7 @@ exactly. The ``Trainer`` runs its epoch to the end and evaluates.
 """
 
 import dataclasses
+import json
 import os
 import threading
 
@@ -510,18 +511,43 @@ def test_evaluate_rate_window(monkeypatch, depth, ms, rate):
 
 
 @pytest.mark.parametrize("what", ["results_path", "save_png", "profile"])
-def test_unported_eval_outputs_raise(what):
-    cfg = _eval_cfg(False)
+def test_unported_eval_outputs_raise(what, tmp_path):
+    """The three outputs ``evaluate`` refused before the port read files
+    now work: the COCO results file (``num_results`` entries), one PNG per
+    image in ``infer.output_dir`` (``png_ms_per_batch``), and a Chrome
+    trace in ``profile_dir``; the metrics stay those of a plain run."""
+    cfg = _eval_cfg(False, n=12)
     kwargs = {}
     if what == "results_path":
-        kwargs["results_path"] = "results.json"
+        kwargs["results_path"] = str(tmp_path / "sub" / "results.json")
     elif what == "save_png":
         cfg = dataclasses.replace(cfg, infer=dataclasses.replace(
-            cfg.infer, save_png=True))
+            cfg.infer, save_png=True, output_dir=str(tmp_path)))
     else:
-        cfg = dataclasses.replace(cfg, profile=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Inferencer(cfg, device="cpu").evaluate(**kwargs)
+        cfg = dataclasses.replace(cfg, profile=True,
+                                  profile_dir=str(tmp_path / "trace"))
+    plain = Inferencer(_eval_cfg(False, n=12), device="cpu",
+                       seed=1).evaluate()
+    m = Inferencer(cfg, device="cpu", seed=1).evaluate(**kwargs)
+    assert m["num_images"] == 3
+    extra = {"results_path": {"num_results"}, "save_png": {"png_ms_per_batch"},
+             "profile": set()}[what]
+    assert set(m) == set(plain) | extra
+    for k in plain:
+        if k not in TIMING:
+            assert m[k] == plain[k], k
+    if what == "results_path":
+        entries = json.loads((tmp_path / "sub" / "results.json").read_text())
+        assert len(entries) == m["num_results"]
+        assert {e["image_id"] for e in entries} <= {0, 1, 2}
+    elif what == "save_png":
+        assert sorted(p.name for p in tmp_path.glob("*.png")) == [
+            "b0_i0.png", "b0_i1.png", "b0_i2.png"]
+    else:
+        (trace,) = (tmp_path / "trace").glob("trace_*.json")
+        names = {e.get("name") for e in json.loads(trace.read_text())[
+            "traceEvents"]}
+        assert {"eval.forward", "eval.selection"} <= names
 
 
 def test_set_weights_equals_a_fresh_inferencer():

@@ -32,7 +32,19 @@ Checkpoints on the card: a saved train state loads back bit-equal; a
 Trainer fed from shards takes the first step of one fed from the synthetic
 set at the same loss (the same batch); ``Inferencer(checkpoint=...)``
 equals ``state_dict=`` of the same weights.
+
+Image files on the card: the decoder's JPEG route builds and decodes the
+JPEG fixtures of ``tests/test_torch_fixtures/`` (37 x 45 and photograph
+sizes up to 640 x 480) to the JAX package's digests (libjpeg) or within
+``NVJPEG_MAX_ABS`` levels a pixel and ``NVJPEG_MEAN_ABS`` on average
+(nvJPEG: its IDCT rounds apart from libjpeg's); ``write_png``/``read_png``
+round-trip;
+``predict_paths`` of the tiny config in f32 on the card against the CPU:
+the same instance counts, scores within 1e-3, at most 0.5% of an image's
+PNG or RLE pixels apart.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -835,3 +847,192 @@ def test_gpu_inferencer_from_checkpoint_equals_state_dict(tmp_path):
     ma, mb = a.evaluate(), b.evaluate()
     assert {k: v for k, v in ma.items() if k not in timing} == \
         {k: v for k, v in mb.items() if k not in timing}
+
+
+# --- image files on the card: the decoder, PNG, predict_paths -------------------
+
+# nvJPEG's IDCT against libjpeg's on the embedded JPEGs (its decoded
+# components go through libjpeg's upsampling and colour conversion in
+# numpy): at most this many levels apart at a pixel, this many on average.
+FIXTURES = Path(__file__).resolve().parent / "test_torch_fixtures"
+# nvJPEG's IDCT rounds apart from libjpeg's by a level in a component at
+# times; through YCbCr -> RGB that moves R by up to 1 + 1.402 and B by up
+# to 1 + 1.772 levels, so 3 at most (measured on an H100 machine: 3 on the
+# photographs, 2 at 37 x 45; mean 0.029-0.035)
+NVJPEG_MAX_ABS = 3
+NVJPEG_MEAN_ABS = 0.1
+
+
+def _jpeg_fixtures():
+    """(name, its ``jpeg.json`` entry, the file's bytes, the JAX decoder's
+    decode) of each JPEG fixture."""
+    import json
+
+    from basi_tpu_torch.data.png import read_png
+
+    manifest = json.loads((FIXTURES / "jpeg.json").read_text())
+    for name, fx in manifest.items():
+        yield (name, fx, (FIXTURES / fx["file"]).read_bytes(),
+               read_png(FIXTURES / fx["reference"])[0])
+
+
+@pytest.mark.gpu
+def test_gpu_decoder_builds_and_decodes_the_embedded_jpegs():
+    """The JPEG route of the card's machine builds and decodes the JPEG
+    fixtures (4:4:4, 4:2:0, grey and progressive at 37 x 45; 4:2:0,
+    progressive 4:2:0 and 4:4:4 photographs up to 640 x 480) to the JAX
+    package's decodes: the digests where the route is libjpeg, within
+    ``NVJPEG_MAX_ABS`` and ``NVJPEG_MEAN_ABS`` where it is nvJPEG. The
+    letterboxes of each reference decode to 64 and 512 give the
+    reference's letterbox digests, bit for bit."""
+    import hashlib
+
+    from basi_tpu_torch.data import native as N
+
+    _cuda()
+    route = N.route()
+    N.library()
+    assert N.build_info["route"] == route and N.build_info["path"]
+    for name, fx, data, ref in _jpeg_fixtures():
+        got = N.decode_jpeg(data)
+        assert got.shape == ref.shape == (*fx["shape"], 3), name
+        if route == "libjpeg":
+            assert hashlib.sha256(got.tobytes()).hexdigest() == fx["sha256"]
+        else:
+            diff = np.abs(got.astype(np.int32) - ref)
+            assert diff.max() <= NVJPEG_MAX_ABS, (name, diff.max())
+            assert diff.mean() <= NVJPEG_MEAN_ABS, (name, diff.mean())
+        for size in (64, 512):
+            lb = N.letterbox_rgb(ref, size)
+            assert hashlib.sha256(lb.tobytes()).hexdigest() == \
+                fx[f"sha256_lb{size}"], (name, size)
+
+
+@pytest.mark.gpu
+def test_gpu_jpeg_decode_does_not_wait_for_queued_work():
+    """A decode on another thread, while about a second of work sits queued
+    on the current stream, returns before that work ends: nvJPEG runs on
+    the decoding thread's own non-blocking stream, so a folder's decodes
+    overlap the batches ``evaluate`` has queued (on the libjpeg route the
+    decode never touches the card)."""
+    import threading
+
+    from basi_tpu_torch.data import native as N
+
+    _cuda()
+    _, _, data, ref = next(f for f in _jpeg_fixtures() if f[0] == "photo_420")
+    ready, go, out = threading.Event(), threading.Event(), {}
+    queued = torch.cuda.Event()
+
+    def worker():
+        N.decode_jpeg(data)  # warm: the thread's stream, nvJPEG's buffers
+        ready.set()
+        go.wait()
+        out["rgb"] = N.decode_jpeg(data)
+        out["queued_done"] = queued.query()
+
+    t = threading.Thread(target=worker)
+    t.start()
+    ready.wait()
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of clock cycles
+    queued.record()
+    go.set()
+    t.join()
+    assert not out["queued_done"], "the decode waited for the queued work"
+    torch.cuda.synchronize()
+    assert out["rgb"].shape == ref.shape
+
+
+@pytest.mark.gpu
+def test_gpu_png_round_trips(tmp_path, rng):
+    """``write_png`` then ``read_png`` (L, RGB, P) give back the arrays;
+    the decoder reads the RGB one unchanged at its own size."""
+    from basi_tpu_torch.data import native as N
+    from basi_tpu_torch.data import png as P
+
+    _cuda()
+    lum = rng.randint(0, 256, (31, 47)).astype(np.uint8)
+    rgb = rng.randint(0, 256, (40, 23, 3)).astype(np.uint8)
+    idx = rng.randint(0, 4, (9, 9)).astype(np.uint8)
+    pal = np.array([[0, 0, 0], [9, 9, 9], [9, 9, 9], [200, 1, 2]], np.uint8)
+    for name, arr, palette, mode in (("l", lum, None, "L"),
+                                     ("rgb", rgb, None, "RGB"),
+                                     ("p", idx, pal, "P")):
+        path = tmp_path / f"{name}.png"
+        P.write_png(path, arr, palette=palette)
+        got, got_mode = P.read_png(path)
+        assert got_mode == mode
+        np.testing.assert_array_equal(got, arr)
+    img, hw = N.NativeDecoder().decode_letterbox(str(tmp_path / "rgb.png"), 40)
+    assert tuple(hw) == (40, 23)
+    np.testing.assert_array_equal(img[:, :23], rgb)
+    assert not img[:, 23:].any()
+
+
+def _image_folder(tmp_path, rng) -> list[str]:
+    """Non-square PNG scenes and the JPEG fixtures."""
+    from basi_tpu_torch.data.datasets import SyntheticDataset
+    from basi_tpu_torch.data.png import write_png
+
+    scenes = SyntheticDataset(n=8, image_size=64, max_instances=4)
+    paths = []
+    for i, (h, w) in enumerate(((70, 50), (64, 96), (33, 80), (90, 90),
+                                (41, 63), (57, 38))):
+        img, _, _ = scenes._scene(i, h, w)
+        paths.append(str(tmp_path / f"{i:04d}.png"))
+        write_png(paths[-1], img)
+    for name, _, data, _ in _jpeg_fixtures():
+        paths.append(str(tmp_path / f"jpeg_{name}.jpg"))
+        (tmp_path / f"jpeg_{name}.jpg").write_bytes(data)
+    return paths
+
+
+@pytest.mark.gpu
+def test_gpu_predict_paths_matches_cpu(tmp_path, rng):
+    """``predict_paths`` of the tiny config in f32, the same seeded weights
+    (objectness bias 0) on the card and on the CPU, over 13 files (4
+    batches of 4, the last padded): the same instance counts, scores
+    within 1e-3, the same image ids and sizes in the results, at most
+    0.5% of an RLE mask's or a PNG's pixels apart (``chip_smoke.py``
+    phase 9 holds each apart pixel to a probability within 1e-3 of
+    0.5)."""
+    import json
+
+    from basi_tpu_torch.data.coco import rle_decompress, rle_to_mask
+    from basi_tpu_torch.data.png import read_png
+    from basi_tpu_torch.infer import Inferencer
+
+    from basi_tpu_torch.models.basi import create_model
+
+    dev = _cuda()
+    paths = _image_folder(tmp_path, rng)
+    cfg = _tiny_eval_cfg("infer.score_threshold=0.05")
+    model = create_model(cfg.model, "cpu", torch.Generator().manual_seed(3))
+    with torch.no_grad():  # the focal prior's bias would fill no slot
+        model.instance.score.bias.zero_()
+    sd = model.state_dict()
+    outs = {}
+    for where in (dev, "cpu"):
+        inf = Inferencer(cfg, device=where, state_dict=sd)
+        tag = "card" if where == dev else "cpu"
+        res = inf.predict_paths(paths, out_dir=str(tmp_path / tag),
+                                results_path=str(tmp_path / f"{tag}.json"))
+        outs[tag] = (res, json.loads((tmp_path / f"{tag}.json").read_text()))
+    (rc, jc), (rp, jp) = outs["card"], outs["cpu"]
+    assert [r["instances"] for r in rc] == [r["instances"] for r in rp]
+    assert sum(r["instances"] for r in rp) > 0
+    for a, b in zip(rc, rp):
+        np.testing.assert_allclose(a["scores"], b["scores"], atol=1e-3)
+    assert len(jc) == len(jp)
+    for a, b in zip(jc, jp):
+        assert (a["image_id"], a["segmentation"]["size"]) == \
+            (b["image_id"], b["segmentation"]["size"])
+        h, w = a["segmentation"]["size"]
+        ma = rle_to_mask(rle_decompress(a["segmentation"]["counts"]), h, w)
+        mb = rle_to_mask(rle_decompress(b["segmentation"]["counts"]), h, w)
+        assert (ma != mb).mean() <= 0.005
+    for p in paths:
+        stem = p.rsplit("/", 1)[1].rsplit(".", 1)[0]
+        a = read_png(tmp_path / "card" / f"{stem}.png")[0]
+        b = read_png(tmp_path / "cpu" / f"{stem}.png")[0]
+        assert a.shape == b.shape and (a != b).mean() <= 0.005

@@ -16,6 +16,7 @@ entry points run on the card unless asked for the CPU.
 
 import ast
 import dataclasses
+import os
 import pathlib
 
 import numpy as np
@@ -207,11 +208,32 @@ def test_make_dataset_and_iter_epoch_match_jax(split):
 
 
 def test_on_disk_datasets_not_ported(tmp_path):
-    """The folder and COCO datasets raise; shards build (JAX's packing)."""
-    for name in ("ilso", "soc", "folder", "coco"):
-        cfg = C.get_config("", [f"data.dataset={name}"])
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            D.make_dataset(cfg.data)
+    """Every on-disk dataset builds from its files: the ILSO/SOC folders
+    and COCO (each sample equal to the JAX package's), and shards (JAX's
+    packing)."""
+    import test_coco
+    from basi_tpu.data.coco import CocoDataset as JaxCoco
+    from test_torch_files import make_folder
+
+    root = make_folder(str(tmp_path / "folder"), n=4, split="val")
+    coco = str(tmp_path / "coco")
+    os.makedirs(coco)
+    test_coco._write_coco_tree(coco)
+    for name, where in (("ilso", root), ("soc", root), ("folder", root),
+                        ("coco", coco)):
+        cfg = C.get_config("", [f"data.dataset={name}", f"data.root={where}",
+                                "data.image_size=32", "model.image_size=32",
+                                "data.max_instances=3"])
+        ds = D.make_dataset(cfg.data, split="val")
+        if name == "coco":
+            want = JaxCoco(coco, image_size=32, max_instances=3, split="val",
+                           decode_backend="native")
+        else:
+            want = jax_datasets.FolderDataset(root, image_size=32,
+                                              max_instances=3, split="val",
+                                              decode_backend="native")
+        assert len(ds) == len(want) > 0
+        _assert_samples_equal(ds.get(1), want.get(1))
     src = jax_datasets.SyntheticDataset(n=4, image_size=32, max_instances=3)
     jax_shards.pack_dataset(src, str(tmp_path / "train"), log=None)
     cfg = C.get_config("", ["data.dataset=shards", f"data.root={tmp_path}",
@@ -248,7 +270,9 @@ def test_port_sources_import_no_jax():
     for part in ("evals/__init__.py", "evals/ap.py", "evals/saliency.py",
                  "data/native_gt.py", "ops/paste.py", "data/letterbox.py",
                  "data/shards.py", "utils/logging.py", "utils/checkpoint.py",
-                 "tools/bench_accuracy.py"):
+                 "tools/bench_accuracy.py", "data/png.py", "data/native.py",
+                 "data/coco.py", "data/clib.py",
+                 "utils/profiling.py"):
         assert ROOT / "basi_tpu_torch" / part in files, part
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
