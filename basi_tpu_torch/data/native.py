@@ -13,7 +13,8 @@ square. Here:
   else through the CUDA toolkit's nvJPEG (``csrc/jpeg_nvjpeg.cc``): nvJPEG
   decodes the components and runs the IDCT on the card, and
   ``planes_to_rgb`` then does libjpeg's chroma upsampling and YCbCr -> RGB
-  in numpy, so only the IDCT's rounding differs from libjpeg. nvJPEG runs
+  in numpy (none for a file libjpeg reads as RGB-coded, ``jpeg_is_rgb``),
+  so only the IDCT's rounding differs from libjpeg. nvJPEG runs
   on a CUDA stream of the decoding thread's own, so decodes never wait for
   the model's work. Each route is a small C library built with ``g++`` on
   first use (``data/clib.py``); a failed build raises with the compiler's
@@ -174,11 +175,13 @@ _CR_G = -46802 * _X
 _CB_G = -22554 * _X + (1 << 15)
 
 
-def planes_to_rgb(planes: list[np.ndarray], hf: int, vf: int) -> np.ndarray:
+def planes_to_rgb(planes: list[np.ndarray], hf: int, vf: int,
+                  rgb: bool = False) -> np.ndarray:
     """Decoded JPEG components (Y, or Y Cb Cr at their sampled sizes, uint8;
     the chroma upsampled by ``hf`` x ``vf``) -> (H, W, 3) uint8 RGB as
     libjpeg makes it with its default settings: fancy upsampling, then its
-    integer YCbCr -> RGB, clamped."""
+    integer YCbCr -> RGB, clamped. ``rgb``: the three components are R, G
+    and B already (``jpeg_is_rgb``), upsampled alike and not converted."""
     y = planes[0]
     if len(planes) == 1:
         return np.repeat(y[..., None], 3, axis=2)
@@ -187,10 +190,50 @@ def planes_to_rgb(planes: list[np.ndarray], hf: int, vf: int) -> np.ndarray:
                       f"sampling {hf}x{vf}")
     h, w = y.shape
     cb, cr = [_upsample(c, hf, vf)[:h, :w] for c in planes[1:]]
+    if rgb:
+        return np.stack([y, cb, cr], axis=2).astype(np.uint8)
     yy = y.astype(np.int64)
     rgb = np.stack([yy + _CR_R[cr], yy + ((_CB_G[cb] + _CR_G[cr]) >> 16),
                     yy + _CB_B[cb]], axis=2)
     return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def jpeg_is_rgb(data: bytes) -> bool:
+    """Whether libjpeg(-turbo) reads a 3-component JPEG's components as R,
+    G, B rather than Y, Cb, Cr (``default_decompress_parms`` in
+    jdapimin.c): a JFIF marker means YCbCr; else an Adobe marker's
+    transform 0 means RGB (any other transform YCbCr); else component ids
+    'R' 'G' 'B' mean RGB. Markers are read up to the first scan."""
+    jfif, adobe, ids = False, None, None
+    i, n = 2, len(data)
+    while i + 4 <= n:
+        if data[i] != 0xFF:
+            raise IOError(f"JPEG marker expected at byte {i}")
+        marker = data[i + 1]
+        if marker == 0xFF:  # fill byte
+            i += 1
+            continue
+        if marker in (0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
+            i += 2
+            continue
+        if marker in (0xDA, 0xD9):  # start of scan, end of image
+            break
+        length = struct.unpack(">H", data[i + 2:i + 4])[0]
+        body = data[i + 4:i + 2 + length]
+        if marker == 0xE0 and body[:5] == b"JFIF\0" and len(body) >= 14:
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            adobe = body[11]
+        elif (0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC)
+              and len(body) >= 6):
+            ids = tuple(body[6 + 3 * c] for c in range(min(body[5], 3))
+                        if 6 + 3 * c < len(body))
+        i += 2 + length
+    if jfif:
+        return False
+    if adobe is not None:
+        return adobe == 0
+    return ids == (82, 71, 66)
 
 
 def _split(buf: np.ndarray, comps: int, dims) -> list[np.ndarray]:
@@ -272,7 +315,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         host.copy_(buf, non_blocking=True)
     stream.synchronize()  # this decode's work only
     return planes_to_rgb(_split(host.numpy(), comps, list(dims)), dims[6],
-                         dims[7])
+                         dims[7], rgb=comps == 3 and jpeg_is_rgb(data))
 
 
 def _decode_stream():

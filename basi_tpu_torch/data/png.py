@@ -17,7 +17,8 @@ The port imports no PIL, so it reads and writes PNG itself:
   expanded to 8 bits and to RGB, 16-bit samples to their high byte, alpha
   dropped (never composited).
 * ``write_png(path, arr)`` writes 8-bit ``L`` (2-D), ``RGB`` (H, W, 3), or
-  ``P`` when a palette is given, filtered as libpng filters by default.
+  ``P`` when a palette is given, filtered as libpng filters by default;
+  ``encode_png`` returns the same file's bytes.
 
 A bad signature, a CRC error, a truncated file or zlib stream, or a header
 the format does not allow raises ``IOError``.
@@ -232,9 +233,16 @@ def _filter_rows(lines: np.ndarray, bpp: int) -> np.ndarray:
 
 def write_png(path, arr: np.ndarray, palette: np.ndarray | None = None
               ) -> None:
-    """Write 8-bit ``L`` (2-D uint8), ``RGB`` ((H, W, 3) uint8), or ``P``
-    (2-D uint8 indices with ``palette`` (entries, 3) uint8), as libpng
-    writes them by default: ``L`` and ``RGB`` rows with its adaptive
+    """Write ``encode_png(arr, palette)`` to ``path``."""
+    data = encode_png(arr, palette)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(arr: np.ndarray, palette: np.ndarray | None = None) -> bytes:
+    """The PNG file of 8-bit ``L`` (2-D uint8), ``RGB`` ((H, W, 3) uint8),
+    or ``P`` (2-D uint8 indices with ``palette`` (entries, 3) uint8), as
+    libpng writes them by default: ``L`` and ``RGB`` rows with its adaptive
     filter choice, ``P`` rows unfiltered; zlib level 6."""
     arr = np.ascontiguousarray(arr)
     if arr.dtype != np.uint8:
@@ -261,5 +269,4 @@ def write_png(path, arr: np.ndarray, palette: np.ndarray | None = None
         parts.append(_chunk(b"PLTE", pal.tobytes()))
     parts += [_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)),
               _chunk(b"IEND", b"")]
-    with open(path, "wb") as f:
-        f.write(b"".join(parts))
+    return b"".join(parts)

@@ -63,7 +63,11 @@ from basi_tpu_torch.models.basi import BASIOutputs, create_model
 from basi_tpu_torch.ops.nms import select_instances_from_kernels
 from basi_tpu_torch.ops.paste import paste_masks_batch
 from basi_tpu_torch.ops.resize import resize_bilinear
-from basi_tpu_torch.utils.checkpoint import CheckpointManager
+from basi_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
+    is_params_export,
+    load_params,
+)
 from basi_tpu_torch.utils.logging import save_mask_pngs
 from basi_tpu_torch.utils.profiling import maybe_trace
 
@@ -176,9 +180,11 @@ class EvalAccumulator:
 
 
 def load_checkpoint_weights(path: str) -> dict:
-    """The model's state dict from a Trainer checkpoint directory
-    (``CheckpointManager.restore_weights``: EMA preferred) or a torch
-    state dict file."""
+    """The model's state dict from a params export (``export_params``), a
+    Trainer checkpoint directory (``CheckpointManager.restore_weights``:
+    EMA preferred) or a torch state dict file."""
+    if os.path.isdir(path) and is_params_export(path):
+        return load_params(path)
     if os.path.isdir(path):
         return CheckpointManager(path).restore_weights()
     if os.path.isfile(path):
@@ -192,10 +198,11 @@ class Inferencer:
                  seed: int = 0):
         """``params``/``batch_stats``: JAX variable trees (numpy leaves);
         ``state_dict``: torch names (``export_basinet`` output);
-        ``checkpoint``: a Trainer checkpoint directory (its newest step,
-        the EMA weights when it has them) or a torch state dict file (as
-        ``basi export --torch`` writes one); with none of these, random
-        weights from ``torch.Generator().manual_seed(seed)``. Weights are
+        ``checkpoint``: a params export (``export_params``), a Trainer
+        checkpoint directory (its newest step, the EMA weights when it has
+        them) or a torch state dict file (as ``export --torch`` writes
+        one); with none of these, random weights from
+        ``torch.Generator().manual_seed(seed)``. Weights are
         cast once to the inference dtype (``infer.dtype``, or
         ``model.dtype`` when that is empty)."""
         check_infer_config(cfg)
@@ -264,16 +271,11 @@ class Inferencer:
         masks, scores = self._select(out)
         return masks, scores, out.saliency_logits
 
-    @torch.inference_mode()
     def full_res_masks(self, slot_mask_probs) -> torch.Tensor:
         """Slot-mask probabilities (..., h, w) -> f32 probabilities at the
-        model input resolution: back to logits in the probs' dtype, then
-        the fused upsample + sigmoid kernel."""
-        probs = torch.as_tensor(slot_mask_probs, device=self.device)
-        size = self.cfg.model.image_size
-        p32 = torch.clamp(probs.float(), 1e-6, 1 - 1e-6)
-        logits = (torch.log(p32) - torch.log1p(-p32)).to(probs.dtype)
-        return upsample_sigmoid(logits, (size, size))
+        model input resolution (``full_res_masks``)."""
+        return full_res_masks(slot_mask_probs, self.cfg.model.image_size,
+                              self.device)
 
     # --- prediction export ------------------------------------------------
 
@@ -708,6 +710,17 @@ class Inferencer:
             metrics["num_results"] = len(coco_results)
         print("[eval] " + json.dumps(metrics), flush=True)
         return metrics
+
+
+@torch.inference_mode()
+def full_res_masks(slot_mask_probs, size: int, device) -> torch.Tensor:
+    """Slot-mask probabilities (..., h, w) on ``device`` -> f32
+    probabilities at ``size`` x ``size``: back to logits in the probs'
+    dtype, then the fused upsample + sigmoid kernel."""
+    probs = torch.as_tensor(slot_mask_probs, device=device)
+    p32 = torch.clamp(probs.float(), 1e-6, 1 - 1e-6)
+    logits = (torch.log(p32) - torch.log1p(-p32)).to(probs.dtype)
+    return upsample_sigmoid(logits, (size, size))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -7,6 +7,12 @@ the JAX package) ``csrc/upsample_int_bwd.cu``. Each launches its kernel for
 a CUDA tensor and runs its plain PyTorch version (``upsample_int_reference``,
 ``upsample_int_backward_reference``) for a CPU tensor; a CUDA tensor the
 kernel cannot take raises, it never falls back.
+
+The forward is also the custom op ``basi::upsample_int`` (the plain version
+on the CPU, the kernel on CUDA, a fake implementation for tracing), which
+``ops/resize.py`` calls while ``torch.export`` traces the model, so that an
+exported serving program (``aot.py``) launches the kernel. Eager calls never
+go through the op.
 """
 
 from __future__ import annotations
@@ -109,6 +115,27 @@ def upsample_int(x: torch.Tensor, f: int) -> torch.Tensor:
 
 
 upsample_int.launches = 0
+
+
+@torch.library.custom_op("basi::upsample_int", mutates_args=(),
+                         device_types="cpu")
+def upsample_int_op(x: torch.Tensor, f: int) -> torch.Tensor:
+    """``upsample_int`` forward as a custom op, for exported programs."""
+    _check(x, f)
+    return upsample_int_reference(x, f)
+
+
+@upsample_int_op.register_kernel("cuda")
+def _upsample_int_op_cuda(x: torch.Tensor, f: int) -> torch.Tensor:
+    _check(x, f)
+    return _forward(x.contiguous(), f)
+
+
+@upsample_int_op.register_fake
+def _upsample_int_op_fake(x: torch.Tensor, f: int) -> torch.Tensor:
+    _check(x, f)
+    n, h, w, c = x.shape
+    return x.new_empty((n, f * h, f * w, c))
 
 
 def upsample_int_reference(x: torch.Tensor, f: int) -> torch.Tensor:

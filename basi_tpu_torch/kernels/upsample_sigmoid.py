@@ -4,6 +4,9 @@ Replaces ``basi_tpu/ops/pallas/upsample_sigmoid.py::upsample_sigmoid``; the
 kernel is ``csrc/upsample_sigmoid.cu``. ``upsample_sigmoid`` launches the
 kernel for a CUDA tensor and runs ``upsample_sigmoid_reference`` (plain
 PyTorch) for a CPU tensor; a CUDA tensor the kernel cannot take raises.
+The same function is the custom op ``basi::upsample_sigmoid`` (the plain
+version on the CPU, the kernel on CUDA, a fake implementation for tracing),
+which ``upsample_sigmoid`` calls while ``torch.export`` traces it.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ def upsample_sigmoid(logits: torch.Tensor,
     oh, ow = out_hw
     if (h, w) == (oh, ow):  # identity resize: only the sigmoid remains
         return torch.sigmoid(logits.float())
+    if torch.compiler.is_exporting():
+        return upsample_sigmoid_op(logits, oh, ow)
     if logits.device.type == "cpu":
         return upsample_sigmoid_reference(logits, out_hw)
     if logits.device.type != "cuda":
@@ -49,6 +54,27 @@ def upsample_sigmoid(logits: torch.Tensor,
 
 
 upsample_sigmoid.launches = 0
+
+
+@torch.library.custom_op("basi::upsample_sigmoid", mutates_args=(),
+                         device_types="cpu")
+def upsample_sigmoid_op(logits: torch.Tensor, oh: int,
+                        ow: int) -> torch.Tensor:
+    """``upsample_sigmoid`` as a custom op, for exported programs."""
+    return upsample_sigmoid_reference(logits, (oh, ow))
+
+
+@upsample_sigmoid_op.register_kernel("cuda")
+def _upsample_sigmoid_op_cuda(logits: torch.Tensor, oh: int,
+                              ow: int) -> torch.Tensor:
+    return upsample_sigmoid(logits, (oh, ow))
+
+
+@upsample_sigmoid_op.register_fake
+def _upsample_sigmoid_op_fake(logits: torch.Tensor, oh: int,
+                              ow: int) -> torch.Tensor:
+    return logits.new_empty((*logits.shape[:-2], oh, ow),
+                            dtype=torch.float32)
 
 
 def upsample_sigmoid_reference(logits: torch.Tensor,

@@ -9,6 +9,9 @@ integer-factor (2/4/8) upsamples of CUDA tensors go to the ``upsample_int``
 kernel under the same conditions as the JAX package's Pallas route; every
 other resize (f32, downsamples, odd channel counts) takes the einsum. Both
 routes carry gradients (the kernel's through its ``autograd.Function``).
+While ``torch.export`` traces, those resizes become the custom op
+``basi::upsample_int`` on any device (the einsum on the CPU, the kernel on
+CUDA), and the interpolation matrices are traced constants, never cached.
 """
 
 from __future__ import annotations
@@ -18,7 +21,11 @@ import functools
 import numpy as np
 import torch
 
-from basi_tpu_torch.kernels.upsample_int import FACTORS, upsample_int
+from basi_tpu_torch.kernels.upsample_int import (
+    FACTORS,
+    upsample_int,
+    upsample_int_op,
+)
 
 
 @functools.lru_cache(maxsize=256)
@@ -45,12 +52,22 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarr
     return w.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
 def interp_tensor(in_size: int, out_size: int, align_corners: bool,
                   device: torch.device) -> torch.Tensor:
     """``_interp_matrix`` as an f32 tensor on ``device``, copied there once:
     a copy from pageable host memory would wait for the device's queue on
-    every call. Made outside inference mode, so autograd may save it."""
+    every call. Made outside inference mode, so autograd may save it. While
+    ``torch.export`` traces, a fresh tensor: a cached one would be the
+    tracer's fake tensor."""
+    if torch.compiler.is_exporting():
+        return torch.from_numpy(
+            _interp_matrix(in_size, out_size, align_corners)).to(device)
+    return _interp_tensor(in_size, out_size, align_corners, device)
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_tensor(in_size: int, out_size: int, align_corners: bool,
+                   device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.from_numpy(
             _interp_matrix(in_size, out_size, align_corners)).to(device)
@@ -71,6 +88,8 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
     if (h, w) == (oh, ow):
         return x
     f = kernel_upsample_factor(x, oh, ow, align_corners)
+    if f and torch.compiler.is_exporting():
+        return upsample_int_op(x.contiguous(), f)
     if f and x.is_cuda:
         return upsample_int(x.contiguous(), f)
     return _resize_einsum(x, (oh, ow), align_corners)

@@ -1,9 +1,10 @@
 """Serving: a thread-safe request batcher (port of ``basi_tpu/serve.py``).
 
 Requests queue on the host; one worker thread packs them into fixed-size
-batches (padding the tail), runs ``Inferencer.predict_batch`` on the device
-and hands each caller its slots. ``predict_many`` scores a bulk array batch
-by batch.
+batches (padding the tail), runs ``predict_batch`` on the device and hands
+each caller its slots. ``predict_many`` scores a bulk array batch by
+batch. The program is a live ``Inferencer``, or with ``aot_path`` an
+``export --aot`` artifact (``aot.py``) behind the same interface.
 """
 
 from __future__ import annotations
@@ -14,16 +15,42 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from basi_tpu_torch.config import Config
 from basi_tpu_torch.device import DEFAULT_DEVICE
-from basi_tpu_torch.infer import Inferencer, to_numpy
+from basi_tpu_torch.infer import (
+    _DTYPES,
+    Inferencer,
+    full_res_masks,
+    to_numpy,
+)
 
 
 @dataclass
 class Prediction:
     masks: np.ndarray  # (K, H/4, W/4) probabilities (bf16 widened to f32)
     scores: np.ndarray  # (K,)
+
+
+class _AotBackend:
+    """``Inferencer``-shaped adapter over a loaded artifact: its
+    ``predict_batch`` runs the exported program; ``full_res_masks`` runs
+    the live ``upsample_sigmoid`` kernel (weight-free, not part of the
+    artifact's contract)."""
+
+    def __init__(self, model):
+        self._model = model
+        self.meta = model.meta
+        self.device = model.device
+        self.dtype = _DTYPES[model.meta["infer_dtype"]]
+
+    def predict_batch(self, images_u8):
+        return self._model(images_u8)
+
+    def full_res_masks(self, slot_mask_probs) -> torch.Tensor:
+        return full_res_masks(slot_mask_probs, int(self.meta["model_size"]),
+                              self.device)
 
 
 class BatchedPredictor:
@@ -34,14 +61,22 @@ class BatchedPredictor:
                  aot_path: str = "", *, device=DEFAULT_DEVICE, params=None,
                  batch_stats=None, state_dict=None, seed: int = 0):
         """Weights as for ``Inferencer`` (``params``/``batch_stats``,
-        ``state_dict`` or a seeded random init) on ``device``."""
+        ``state_dict`` or a seeded random init) on ``device``. ``aot_path``:
+        serve an ``export --aot`` artifact instead; batch and model size
+        come from its sidecar (they are baked into the program)."""
         if aot_path:
-            raise NotImplementedError("aot_path serving not yet ported")
-        self.inf = Inferencer(cfg, device=device, params=params,
-                              batch_stats=batch_stats, state_dict=state_dict,
-                              checkpoint=checkpoint, seed=seed)
-        self.batch = cfg.infer.batch_size
-        self.size = cfg.model.image_size
+            from basi_tpu_torch.aot import load_serving
+
+            self.inf = _AotBackend(load_serving(aot_path, device))
+            self.batch = int(self.inf.meta["batch_size"])
+            self.size = int(self.inf.meta["model_size"])
+        else:
+            self.inf = Inferencer(cfg, device=device, params=params,
+                                  batch_stats=batch_stats,
+                                  state_dict=state_dict,
+                                  checkpoint=checkpoint, seed=seed)
+            self.batch = cfg.infer.batch_size
+            self.size = cfg.model.image_size
         self.max_wait = max_wait_ms / 1000.0
         # Bounded queue: callers past max_pending block (backpressure). The
         # lock closes the race between predict's stop check + enqueue and

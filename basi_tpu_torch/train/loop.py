@@ -9,11 +9,11 @@ epoch it evaluates on the val split (``evaluate``: the EMA weights when
 the state has them, with the live BatchNorm running statistics) and logs
 a ``[val]`` record.
 
-The host feed runs on a thread: it assembles each batch (``iter_epoch``,
-shuffled by ``train.seed + epoch``), bit-packs the masks, copies the arrays
-into pinned memory and starts a non-blocking copy to the device on a side
-stream, a bounded queue ahead of the step; the step's stream waits for the
-copy's event. Settings outside the slice raise
+The host feed is ``data/pipeline.py``'s ``DeviceFeed`` (shuffled by
+``train.seed + epoch``, masks bit-packed): a thread assembles each batch,
+copies it into pinned memory and starts non-blocking copies to the device
+on a side stream, a bounded queue ahead of the step; the step's stream
+waits for the copy's event. Settings outside the slice raise
 ``NotImplementedError`` (``train.state.check_train_config``).
 
 With ``train.checkpoint_dir`` the whole train state is saved after each
@@ -30,18 +30,15 @@ through ``utils/logging.MetricLogger`` (console, and JSONL at
 
 from __future__ import annotations
 
-import queue
 import signal
 import threading
 import time
-from typing import Iterator
 
-import numpy as np
 import torch
 
 from basi_tpu_torch.config import Config
-from basi_tpu_torch.data.datasets import iter_epoch, make_dataset
-from basi_tpu_torch.data.transforms import pack_masks_host
+from basi_tpu_torch.data.datasets import make_dataset
+from basi_tpu_torch.data.pipeline import DeviceFeed
 from basi_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from basi_tpu_torch.infer import Inferencer
 from basi_tpu_torch.models.basi import create_model
@@ -53,89 +50,6 @@ from basi_tpu_torch.train.state import (
 from basi_tpu_torch.train.step import compute_dtype, make_train_step
 from basi_tpu_torch.utils.checkpoint import CheckpointManager
 from basi_tpu_torch.utils.logging import MetricLogger
-
-_KEYS = ("image", "masks", "valid")
-
-
-class HostFeed:
-    """Background thread: host batches -> pinned memory -> non-blocking
-    copies to ``device``, at most ``depth`` batches ahead."""
-
-    def __init__(self, dataset, batch_size: int, seed: int, device,
-                 pack_masks: bool = True, depth: int = 2):
-        self.dataset = dataset
-        self.batch_size = batch_size
-        self.seed = seed
-        self.device = torch.device(device)
-        self.pack_masks = pack_masks
-        self.depth = max(1, depth)
-
-    def steps_per_epoch(self) -> int:
-        return len(self.dataset) // self.batch_size
-
-    def _to_device(self, hb: dict, stream) -> tuple[dict, object]:
-        """(device batch, event its copies complete at, or None)."""
-        if self.pack_masks:
-            hb = dict(hb, masks=pack_masks_host(hb["masks"]))
-        host = {k: torch.from_numpy(np.ascontiguousarray(hb[k])) for k in _KEYS}
-        if stream is None:
-            return host, None
-        with torch.cuda.stream(stream):
-            out = {k: t.pin_memory().to(self.device, non_blocking=True)
-                   for k, t in host.items()}
-            return out, stream.record_event()
-
-    def epoch(self, epoch_idx: int, skip: int = 0) -> Iterator[dict]:
-        """The device batches of one epoch (order: ``seed + epoch_idx``),
-        from batch ``skip`` on."""
-        host = iter_epoch(self.dataset, self.batch_size, shuffle=True,
-                          seed=self.seed + epoch_idx, skip=skip)
-        cuda = self.device.type == "cuda"
-        stream = torch.cuda.Stream(self.device) if cuda else None
-        q: queue.Queue = queue.Queue(maxsize=self.depth)
-        stop = threading.Event()
-        end = object()
-
-        def put(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.2)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def produce():
-            try:
-                if cuda:
-                    torch.cuda.set_device(self.device)
-                for hb in host:
-                    if not put(self._to_device(hb, stream)):
-                        return
-            except BaseException as e:  # handed to the consumer, re-raised
-                put(e)
-                return
-            put(end)
-
-        worker = threading.Thread(target=produce, daemon=True)
-        worker.start()
-        try:
-            while True:
-                item = q.get()
-                if item is end:
-                    return
-                if isinstance(item, BaseException):
-                    raise item
-                batch, ready = item
-                if ready is not None:
-                    current = torch.cuda.current_stream(self.device)
-                    current.wait_event(ready)
-                    for t in batch.values():  # freed memory waits for the step
-                        t.record_stream(current)
-                yield batch
-        finally:
-            stop.set()
-            worker.join(timeout=30)
 
 
 class Trainer:
@@ -154,10 +68,11 @@ class Trainer:
         self.dataset = make_dataset(cfg.data, split="train")
         self.val_dataset = make_dataset(cfg.data, split="val")
         self._inferencer: Inferencer | None = None
-        self.feed = HostFeed(self.dataset, cfg.data.batch_size,
-                             cfg.train.seed, self.device,
-                             pack_masks=cfg.data.pack_masks,
-                             depth=cfg.data.prefetch_depth)
+        self.feed = DeviceFeed(self.dataset, cfg.data.batch_size,
+                               shuffle=True, seed=cfg.train.seed,
+                               device=self.device,
+                               pack_masks=cfg.data.pack_masks,
+                               depth=cfg.data.prefetch_depth)
         self.steps_per_epoch = self.feed.steps_per_epoch()
         if self.steps_per_epoch <= 0:
             raise ValueError(

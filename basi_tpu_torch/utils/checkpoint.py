@@ -12,6 +12,11 @@ with ``os.replace``: a crash never leaves a half-written step under a step
 number, and ``latest_step`` counts only step directories that hold the
 file. The newest ``keep`` steps are kept. Reads go through
 ``torch.load(weights_only=True)``.
+
+``export_params`` / ``load_params`` write and read the serving export, the
+counterpart of the JAX package's bare params directory: ``<dir>/params.pt``
+holds the model's state dict (f32 params and the BatchNorm running
+statistics) and nothing of the train state.
 """
 
 from __future__ import annotations
@@ -24,6 +29,23 @@ import torch
 
 FORMAT = "basi-torch-train-state-v1"
 STATE_FILE = "state.pt"
+PARAMS_FORMAT = "basi-torch-params-v1"
+PARAMS_FILE = "params.pt"
+
+
+def _write_synced(path: str, payload) -> None:
+    """``torch.save`` into ``path``'s directory under a unique name, synced,
+    then renamed over ``path``."""
+    fd, tmp = tempfile.mkstemp(prefix=".tmp-", dir=os.path.dirname(path))
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
 
 
 class CheckpointManager:
@@ -160,3 +182,35 @@ class CheckpointManager:
             raise FileNotFoundError(
                 f"resume: no checkpoint directory at {resume!r}")
         return CheckpointManager(resume).restore(state)
+
+
+def export_params(path: str, state_dict: dict) -> None:
+    """Write the serving export of ``state_dict`` (the model's: params and
+    BatchNorm statistics) into directory ``path``. Every floating tensor
+    must be float32: an export keeps the f32 masters, whatever the
+    inference dtype."""
+    low = sorted(k for k, v in state_dict.items()
+                 if v.is_floating_point() and v.dtype != torch.float32)
+    if low:
+        raise ValueError(f"export_params keeps f32 weights; {len(low)} "
+                         f"tensors are not float32, e.g. {low[:3]}")
+    os.makedirs(path, exist_ok=True)
+    _write_synced(os.path.join(path, PARAMS_FILE), {
+        "format": PARAMS_FORMAT,
+        "model": {k: v.detach().cpu() for k, v in state_dict.items()}})
+
+
+def is_params_export(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, PARAMS_FILE))
+
+
+def load_params(path: str) -> dict:
+    """The state dict of an ``export_params`` directory, on the CPU."""
+    file = os.path.join(path, PARAMS_FILE)
+    if not os.path.isfile(file):
+        raise FileNotFoundError(f"no params export at {path!r}")
+    raw = torch.load(file, map_location="cpu", weights_only=True)
+    if raw.get("format") != PARAMS_FORMAT:
+        raise ValueError(f"{file}: unsupported params format "
+                         f"{raw.get('format')!r} (want {PARAMS_FORMAT})")
+    return raw["model"]

@@ -131,8 +131,9 @@
    7's, which runs the preset's scale now.
 9. Image files (in a temporary directory removed afterwards), from the
    JPEG fixtures of ``tests/test_torch_fixtures/`` (made with Pillow, with
-   the JAX package's decodes of them: 37 x 45 baseline 4:4:4, 4:2:0, grey
-   and progressive; photographs at 640 x 480 baseline 4:2:0, 640 x 427
+   the JAX package's decodes of them: 37 x 45 baseline 4:4:4, 4:2:0,
+   4:2:2, grey, RGB-coded (an Adobe marker, transform 0) and progressive;
+   photographs at 640 x 480 baseline 4:2:0, 640 x 427
    progressive 4:2:0 and 612 x 612 baseline 4:4:4) and PNGs written with
    ``write_png`` (rows filtered as libpng filters them by default). The
    decoder (``data/native.py``) prints its JPEG route and build; every
@@ -155,13 +156,35 @@
    ``bench_accuracy`` (batch 16, the original frame, the native-GT cache
    built first) on an ILSO-style folder of 32 scenes (scale 1.5) with
    labeled mask PNGs, every fourth a palette PNG whose colours are all
-   one grey: in f32 on the card and on the CPU, AP/AR equal and saliency
-   means within 1e-4, and one batch of 4 held as phase 7 holds its own
+   one grey: in f32 on the card and on the CPU over the first 16 scenes,
+   AP/AR equal and saliency means within 1e-4, and one batch of 4 held as
+   phase 7 holds its own
    (masks, IoUs, AP at low IoU equal and not 0); then bf16 with 9
    ``upsample_int`` and 1 ``upsample_sigmoid`` a batch, beside phase 7's
    imgs/s, and the same on 32 photographs as JPEG files and as PNG
    files (the same pixels and masks), with ``FolderDataset.get_batch``
    timed for 16 images of each folder.
+10. The entry points, at ``val_v4-8_ap`` full width, on phase 9's seeded
+   weights written through ``python -m basi_tpu_torch.cli export --out``
+   (each command a process of its own on the card): ``bench --mode
+   infer``, ``--mode train`` (the preset's f32, and bf16) and ``--mode
+   e2e`` at the reference's defaults, each JSON line printed with its
+   launches per batch or step (9 ``upsample_int``; 1
+   ``normalize_and_flip``; 9 + 9 + 1 in bf16), and a ``torch.profiler``
+   window of the infer benchmark (device ms per batch, busy share); the
+   HTTP server (``make_server`` on an ephemeral port) answering 64 POSTs
+   of phase 9's PNG scenes and the JPEG photographs from 16 client
+   threads of a process of their own: every answer 200, 9
+   ``upsample_int`` a batch and 1 ``upsample_sigmoid`` a request, each
+   label map and score list equal to ``predict_batch`` +
+   ``full_res_masks`` of the same canvas on the card; latency
+   p50/p90/p99, requests/s and the mean batch fill; ``/healthz`` 200, a
+   bad body 400, a closed service 503; ``export --aot`` on the card, then
+   ``load_serving`` in a fresh process: its outputs equal the live
+   ``predict_batch`` bit for bit and a batch launches 9 ``upsample_int``
+   kernels (profiler count and counter); ``serve --aot`` answering one
+   request; ``predict`` and ``infer`` through the command line giving
+   phase 9's PNGs, COCO results and folder metrics.
 
 Any failure raises and exits non-zero; so does a machine without CUDA or
 a directory without the package. The line before the last is the
@@ -188,8 +211,10 @@ import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1079,23 +1104,9 @@ def smoke_weights(cfg, gen):
 
 def _counters() -> dict:
     """Each kernel wrapper of the port, by name (each carries ``launches``)."""
-    from basi_tpu_torch.kernels.bn_stats import (
-        channel_dual_sums,
-        channel_moments,
-    )
-    from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
-    from basi_tpu_torch.kernels.upsample_int import (
-        upsample_int,
-        upsample_int_backward,
-    )
-    from basi_tpu_torch.kernels.upsample_sigmoid import upsample_sigmoid
+    from basi_tpu_torch.kernels import launch_counters
 
-    return {"upsample_int": upsample_int,
-            "upsample_int_bwd": upsample_int_backward,
-            "upsample_sigmoid": upsample_sigmoid,
-            "normalize_and_flip": normalize_and_flip,
-            "channel_moments": channel_moments,
-            "channel_dual_sums": channel_dual_sums}
+    return launch_counters()
 
 
 def _zero_kernel_counts() -> None:
@@ -2170,6 +2181,9 @@ FIXTURES = Path(__file__).resolve().parent / "tests" / "test_torch_fixtures"
 FILE_PNG_HW = [(300 + 800 * i // 15, 200 + 500 * i // 15) for i in range(16)]
 FILE_PHOTOS = ("photo_420", "photo_progressive", "photo_444")
 FILE_EVAL_IMAGES = 32
+# batches of 16 of the f32 folder evaluate held card against CPU (the
+# CPU's f32 ResNet-50 takes ~35 s a batch)
+F32_FOLDER_BATCHES = 1
 # nvJPEG's IDCT against libjpeg's on the JPEG fixtures, as
 # tests/test_torch_gpu.py holds it: a component 1 level apart moves R by up
 # to 1 + 1.402 and B by up to 1 + 1.772 levels, so 3 at most
@@ -2573,8 +2587,9 @@ def _time_folder_eval(dev, sd, root: str, gt_dir: str) -> dict:
 def run_folder_eval(dev, sd, roots: dict, synthetic_rate) -> dict:
     """Phase 9: ``evaluate`` of ``bench_accuracy`` on the folders (batch
     16, the original frame, the native-GT cache built first). On the
-    scenes, f32 on the card and on the CPU over all 32 images (AP/AR
-    equal, saliency means within 1e-4, phase 7's rule) and one batch of
+    scenes, f32 on the card and on the CPU over ``F32_FOLDER_BATCHES``
+    batches (AP/AR equal, saliency means within 1e-4, phase 7's rule) and
+    one batch of
     4 held as phase 7 holds its own (``check_eval_f32``); then bf16 on
     each folder (``_time_folder_eval``), the photographs as JPEG beside
     the same photographs as PNG."""
@@ -2597,18 +2612,20 @@ def run_folder_eval(dev, sd, roots: dict, synthetic_rate) -> dict:
             t0 = time.perf_counter()
             ms[device if device == "cpu" else "card"] = Inferencer(
                 fcfg, device=device, state_dict=sd).evaluate(
-                make_dataset(fcfg.data, split="val"))
+                make_dataset(fcfg.data, split="val"),
+                max_batches=F32_FOLDER_BATCHES)
             print(f"  f32 folder evaluate on {device} in "
                   f"{time.perf_counter() - t0:.1f} s")
         a, b = _metrics_only(ms["card"]), _metrics_only(ms["cpu"])
         sal_err = max(abs(a[k] - b[k]) for k in b if k.startswith("saliency"))
-        _require(set(a) == set(b) and a["num_images"] == FILE_EVAL_IMAGES,
+        _require(set(a) == set(b) and a["num_images"]
+                 == F32_FOLDER_BATCHES * fcfg.infer.batch_size,
                  "f32 folder evaluate: other metric keys on the card")
         _require(all(a[k] == b[k] for k in b if k[:2] in ("AP", "AR", "mA")),
                  "f32 folder evaluate: AP/AR differ between card and CPU")
         _require(sal_err <= 1e-4, f"f32 folder evaluate: a saliency metric "
                  f"{sal_err} beyond 1e-4")
-        print(f"f32 folder evaluate card vs cpu ({FILE_EVAL_IMAGES} scenes): "
+        print(f"f32 folder evaluate card vs cpu ({a['num_images']} scenes): "
               f"AP/AR equal, saliency max diff {sal_err:.2e}; card "
               f"{json.dumps(a)}")
         check_eval_f32(dev, sd, _folder_overrides(roots["scenes"], ""),
@@ -2633,32 +2650,496 @@ def run_folder_eval(dev, sd, roots: dict, synthetic_rate) -> dict:
     return out
 
 
-def check_files(dev, gen, synthetic_rate) -> None:
-    """Phase 9: the decoder, ``predict_paths`` and folder ``evaluate``."""
-    import shutil
-    import tempfile
+def check_files(dev, gen, synthetic_rate, root: str) -> dict:
+    """Phase 9: the decoder, ``predict_paths`` and folder ``evaluate``, in
+    ``root``. Returns what phase 10 holds its command line against: the
+    weights, the predict paths and outputs, the folders and the scenes'
+    bf16 metrics."""
+    from basi_tpu_torch.config import get_config
+
+    jpegs = jpeg_fixtures()
+    paths, roots = write_file_fixtures(root, jpegs)
+    dec = check_decoder(paths, jpegs, roots)
+    cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"])
+    sd = smoke_weights(cfg, gen)
+    pred = run_predict_paths(dev, cfg, sd, paths, root)
+    check_predict_f32(dev, sd, paths, root)
+    ev = run_folder_eval(dev, sd, roots, synthetic_rate)
+    rates = {k: [round(v, 1) for v in r] for k, r in dec["rates"].items()}
+    print(f"phase 9 summary ({dec['route']}): decode + letterbox imgs/s "
+          f"[one by one, batched] {json.dumps(rates)}; get_batch of 16 "
+          f"ms {json.dumps({k: round(r['get_batch_ms'], 1) for k, r in ev.items()})}; "
+          f"predict_paths {pred['imgs_per_s']:.2f} imgs/s; folder "
+          f"evaluate imgs/s by the wall clock "
+          f"{json.dumps({k: round(r['imgs_per_s'], 1) for k, r in ev.items()})}")
+    return {"sd": sd, "paths": paths, "roots": roots, "jpegs": jpegs,
+            "scenes_metrics": ev["scenes"]["metrics"]}
+
+
+# --- phase 10: the entry points ---------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+SERVE_REQUESTS, SERVE_CLIENTS = 64, 16
+BENCH_PROFILED_BATCHES = 32
+
+
+def _cli(*args: str, timeout: float = 900) -> str:
+    """``python -m basi_tpu_torch.cli *args`` from the checkout, on the
+    default device (the card); its standard output. A non-zero exit
+    prints the end of both streams and raises; a process past
+    ``timeout`` is killed."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "basi_tpu_torch.cli", *args],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode:
+        print(r.stdout[-3000:])
+        print(r.stderr[-6000:], file=sys.stderr)
+        raise RuntimeError(f"cli {' '.join(args[:3])} exited {r.returncode}")
+    print(f"  cli {' '.join(args[:3])} ...: {time.perf_counter() - t0:.1f} s")
+    return r.stdout
+
+
+def _last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _sets(overrides: list) -> list:
+    return [a for o in overrides for a in ("--set", o)]
+
+
+def profile_infer_window(dev) -> None:
+    """Phase 10: ``torch.profiler`` over one ``bench --mode infer`` window
+    of ``BENCH_PROFILED_BATCHES`` batches (the benchmark's own setup):
+    device ms per batch and the device's busy share of the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from basi_tpu_torch import benchmark
+
+    _, inf, batches = benchmark.infer_setup(iters=BENCH_PROFILED_BATCHES,
+                                            device=dev)
+    float(benchmark.infer_window(inf, batches))  # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(benchmark.infer_window(inf, batches))
+        wall = (time.perf_counter() - t0) * 1e3
+    device_ms = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or "#" in evt.key:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        device_ms += (evt.self_cuda_time_total if us is None else us) / 1e3
+    n = BENCH_PROFILED_BATCHES
+    print(f"bench infer window, profiled ({n} batches of 8): host "
+          f"{wall / n:.3f} ms/batch with the profiler on, device "
+          f"{device_ms / n:.3f} ms/batch: busy {100 * device_ms / wall:.1f}%")
+    del inf, batches
+    torch.cuda.empty_cache()
+
+
+def run_cli_bench(dev) -> dict:
+    """Phase 10: ``bench --mode infer``, ``--mode train`` (the preset's
+    f32, and bf16), ``--mode e2e`` through the command line at the
+    reference's defaults; each prints its JSON line, whose launches per
+    batch or step must be the path's kernels."""
+    runs = {
+        "infer": (["--mode", "infer"], {"upsample_int": 9.0}),
+        "train_f32": (["--mode", "train"], {"normalize_and_flip": 1.0}),
+        "train_bf16": (["--mode", "train", "--set", "model.dtype=bfloat16"],
+                       {"upsample_int": 9.0, "upsample_int_bwd": 9.0,
+                        "normalize_and_flip": 1.0}),
+        "e2e": (["--mode", "e2e"], None),
+    }
+    out = {}
+    for name, (args, launches) in runs.items():
+        line = _last_json(_cli("bench", *args, timeout=900))
+        print(f"bench {name}: {json.dumps(line)}")
+        _require({"metric", "value", "unit"} <= set(line)
+                 and "vs_baseline" not in line and line["value"] > 0,
+                 f"bench {name}: {line}")
+        _require(line["device"] == torch.cuda.get_device_name(0),
+                 f"bench {name} ran on {line['device']}")
+        if launches is not None:
+            got = line.get("launches_per_batch", line.get("launches_per_step"))
+            _require(got == launches, f"bench {name}: launches {got}, "
+                     f"expected {launches}")
+        out[name] = line
+    _require(out["e2e"]["device_infer_imgs_per_s"] > 0, "e2e infer rate")
+    profile_infer_window(dev)
+    return out
+
+
+def _post(url: str, data: bytes, timeout: float = 120):
+    """(status, JSON body, seconds) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST",
+                                 headers={"Content-Type": "image/png"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def _served_label(out: dict) -> np.ndarray:
+    import base64
+
+    from basi_tpu_torch.data.png import decode_png, pil_view
+
+    return pil_view(decode_png(base64.b64decode(out["label_png_b64"])))[0]
+
+
+def _direct_answer(inf, data: bytes) -> tuple[np.ndarray, list]:
+    """What ``Inferencer.predict_batch`` + ``full_res_masks`` give for an
+    upload's canvas on the card: (label map of the content, scores)."""
+    from basi_tpu_torch.data.datasets import letterbox_params
+    from basi_tpu_torch.data.letterbox import resize_bilinear_u8
+    from basi_tpu_torch.infer import to_numpy
+    from basi_tpu_torch.server import decode_upload, label_map
+
+    cfg = inf.cfg
+    size = cfg.model.image_size
+    img = decode_upload(data)
+    vh, vw = letterbox_params(*img.shape[:2], size)
+    batch = np.zeros((cfg.infer.batch_size, size, size, 3), np.uint8)
+    batch[0, :vh, :vw] = resize_bilinear_u8(img, vh, vw)
+    masks, scores, _ = inf.predict_batch(batch)
+    full = to_numpy(inf.full_res_masks(masks[:1]))[0]
+    s = to_numpy(scores)[0]
+    lab, order = label_map(full, s, cfg.infer.score_threshold,
+                           cfg.infer.mask_threshold)
+    return lab[:vh, :vw], [round(float(s[i]), 4) for i in order]
+
+
+# the load generator, a process of its own (its threads do not share the
+# server's interpreter lock): POSTs each file named on stdin (JSON: url,
+# files, clients) from that many threads and prints, per request, its
+# status, body and seconds
+_CLIENT = """
+import json, sys, time, urllib.error, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+job = json.load(sys.stdin)
+bodies = [open(f, "rb").read() for f in job["files"]]
+
+def post(data):
+    req = urllib.request.Request(job["url"], data=data, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    return code, body, time.perf_counter() - t0
+
+with ThreadPoolExecutor(job["clients"]) as pool:
+    t0 = time.perf_counter()
+    out = list(pool.map(post, bodies))
+    wall = time.perf_counter() - t0
+json.dump({"answers": out, "wall": wall}, sys.stdout)
+"""
+
+
+def _load(url: str, files: list, clients: int) -> tuple[list, float]:
+    """(answers, wall seconds) of ``_CLIENT`` posting ``files``."""
+    r = subprocess.run([sys.executable, "-c", _CLIENT], cwd=ROOT,
+                       input=json.dumps({"url": url, "files": files,
+                                         "clients": clients}),
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        print(r.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError(f"the load generator exited {r.returncode}")
+    out = json.loads(r.stdout)
+    return out["answers"], out["wall"]
+
+
+def run_server(dev, cfg, params_dir: str, uploads: list) -> dict:
+    """Phase 10: ``make_server`` on an ephemeral port over the params
+    export (the default device); a load generator in a process of its own
+    sends 16 warm-up requests, then ``SERVE_REQUESTS`` POSTs from
+    ``SERVE_CLIENTS`` client threads, counted: every answer 200, 9
+    ``upsample_int`` per batch and one ``upsample_sigmoid`` per request,
+    each label map and score list equal to ``Inferencer.predict_batch`` +
+    ``full_res_masks`` of the same canvas on the card; ``/healthz`` 200, a
+    bad body 400, a closed service 503. ``uploads``: image file paths.
+    Prints latency p50/p90/p99, requests/s and the mean batch fill."""
+    from basi_tpu_torch.infer import Inferencer
+    from basi_tpu_torch.server import _serve_in_thread
+
+    base, httpd, service = _serve_in_thread(cfg, checkpoint=params_dir,
+                                            predict_timeout=300)
+    inf = None
+    try:
+        p = service.predictor
+        _require(p.inf.device == dev, f"the server ran on {p.inf.device}")
+        code, body, _ = _get(base + "/healthz")
+        _require(code == 200 and body["status"] == "ok", f"healthz {code}")
+        fills = []
+        run = p.inf.predict_batch
+
+        def counted(batch):
+            fills.append(1)
+            return run(batch)
+
+        p.inf.predict_batch = counted
+        files = [uploads[i % len(uploads)] for i in range(SERVE_REQUESTS)]
+        warm, _ = _load(base + "/predict", files[:16], SERVE_CLIENTS)
+        _require(all(c == 200 for c, _, _ in warm), "warm-up requests")
+        fills.clear()
+        _zero_kernel_counts()
+        answers, wall = _load(base + "/predict", files, SERVE_CLIENTS)
+        torch.cuda.synchronize()
+        launches = _kernel_counts()
+        n_b = len(fills)
+        codes = [c for c, _, _ in answers]
+        _require(codes == [200] * SERVE_REQUESTS, f"answers {codes}")
+        _require(launches == dict(_zero_counts(), upsample_int=9 * n_b,
+                                  upsample_sigmoid=SERVE_REQUESTS),
+                 f"expected 9 upsample_int per batch x {n_b} and one "
+                 f"upsample_sigmoid per request; got {launches}")
+        lat = np.array([t for _, _, t in answers]) * 1e3
+        p50, p90, p99 = np.percentile(lat, [50, 90, 99])
+        print(f"served {SERVE_REQUESTS} requests from {SERVE_CLIENTS} "
+              f"client threads (a process of their own) in {wall:.3f} s = "
+              f"{SERVE_REQUESTS / wall:.1f} requests/s; latency ms p50 "
+              f"{p50:.1f} p90 {p90:.1f} p99 {p99:.1f} (max {lat.max():.1f}); "
+              f"{n_b} batches, mean fill {SERVE_REQUESTS / n_b:.2f} of "
+              f"{p.batch}; launches {launches}")
+        inf = Inferencer(cfg, checkpoint=params_dir)
+        _require(inf.device == dev, f"Inferencer ran on {inf.device}")
+        direct = {}
+        for path, (_, body, _) in zip(files, answers):
+            if path not in direct:
+                with open(path, "rb") as f:
+                    direct[path] = _direct_answer(inf, f.read())
+            lab, scores = direct[path]
+            got = _served_label(body)
+            _require(body["scores"] == scores, f"{path}: served scores "
+                     f"{body['scores'][:4]} vs direct {scores[:4]}")
+            _require(np.array_equal(got, lab), f"{path}: "
+                     f"{int((got != lab).sum())} label pixels differ from "
+                     f"predict_batch + full_res_masks")
+        kept = sum(len(d[1]) for d in direct.values())
+        _require(kept > 0, "the served answers kept no instance")
+        print(f"  every label map and score list equal to predict_batch + "
+              f"full_res_masks on the card ({len(direct)} distinct "
+              f"uploads, {kept} kept instances)")
+        p.inf.predict_batch = run
+        code, body, _ = _post(base + "/predict", b"not an image")
+        _require(code == 400, f"a bad body gave {code}")
+        service.predictor.close()
+        with open(uploads[0], "rb") as f:
+            code, _, _ = _post(base + "/predict", f.read())
+        hz, _, _ = _get(base + "/healthz")
+        _require(code == 503 and hz == 503, f"closed service: {code}, {hz}")
+        print("  /healthz 200, a bad body 400, a closed service 503 (and "
+              "/healthz 503)")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    del inf
+    torch.cuda.empty_cache()
+    return {"p50_ms": p50, "p90_ms": p90, "p99_ms": p99,
+            "requests_per_s": SERVE_REQUESTS / wall,
+            "fill": SERVE_REQUESTS / n_b}
+
+
+def _get(url: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, json.loads(r.read()), 0.0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), 0.0
+
+
+# run in a fresh process: load the artifact, one warm call, then one
+# batch under torch.profiler (kernels named upsample_int) and the wrapper's
+# launch count; the outputs go to a file
+_AOT_CHILD = """
+import json, sys
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from basi_tpu_torch.aot import load_serving
+from basi_tpu_torch.kernels.upsample_int import upsample_int
+model = load_serving(sys.argv[1])
+x = torch.from_numpy(np.load(sys.argv[2]))
+model(x)
+torch.cuda.synchronize()
+upsample_int.launches = 0
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    out = model(x)
+    torch.cuda.synchronize()
+n = sum(e.count for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and "upsample_int" in e.key)
+torch.save([t.cpu() for t in out], sys.argv[3])
+print(json.dumps({"profiler_upsample_int": n,
+                  "launches": upsample_int.launches,
+                  "device": str(out[0].device)}))
+"""
+
+
+def run_aot(dev, cfg, params_dir: str, root: str, payload: bytes) -> None:
+    """Phase 10: ``export --aot`` of the params export on the card, then
+    ``load_serving`` in a fresh process: its outputs on a batch equal the
+    live ``predict_batch`` bit for bit, and a batch launches 9
+    ``upsample_int`` kernels (profiler count and the wrapper's); then
+    ``serve --aot`` answers one request."""
+    import os
+    import socket
+
+    from basi_tpu_torch.infer import Inferencer
+
+    path = os.path.join(root, "model.basiaot")
+    t0 = time.perf_counter()
+    meta = _last_json(_cli("export", "--preset", "val_v4-8_ap",
+                           *_sets(["data.dataset=synthetic"]),
+                           "--checkpoint", params_dir, "--aot", path))
+    print(f"export --aot on the card: {meta} in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB")
+    size = cfg.model.image_size
+    x = np.random.RandomState(SEED).randint(
+        0, 256, (cfg.infer.batch_size, size, size, 3)).astype(np.uint8)
+    np.save(os.path.join(root, "aot_batch.npy"), x)
+    out_file = os.path.join(root, "aot_out.pt")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _AOT_CHILD, path,
+                        os.path.join(root, "aot_batch.npy"), out_file],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        print(r.stderr[-6000:], file=sys.stderr)
+        raise RuntimeError(f"load_serving in a fresh process exited "
+                           f"{r.returncode}")
+    child = _last_json(r.stdout)
+    print(f"load_serving in a fresh process: {child} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    _require(child["profiler_upsample_int"] == 9 and child["launches"] == 9
+             and child["device"].startswith("cuda"),
+             f"the artifact's batch launched {child}, expected 9 "
+             f"upsample_int kernels on the card")
+    got = torch.load(out_file, weights_only=True)
+    inf = Inferencer(cfg, checkpoint=params_dir)
+    want = [t.cpu() for t in inf.predict_batch(x)]
+    for name, g, w in zip(("masks", "scores", "saliency"), got, want):
+        diff = float((g.float() - w.float()).abs().max())
+        _require(g.dtype == w.dtype and g.shape == w.shape
+                 and torch.equal(g, w),
+                 f"artifact {name} differs from predict_batch: max abs "
+                 f"diff {diff}")
+    print("  the artifact's masks, scores and saliency equal the live "
+          "predict_batch bit for bit")
+    del inf
+    torch.cuda.empty_cache()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "basi_tpu_torch.cli", "serve", "--aot", path,
+         "--port", str(port)], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        base = f"http://127.0.0.1:{port}"
+        deadline = time.perf_counter() + 300
+        while True:
+            try:
+                if _get(base + "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            _require(proc.poll() is None and time.perf_counter() < deadline,
+                     "serve --aot did not come up")
+            time.sleep(0.5)
+        code, body, dt = _post(base + "/predict", payload)
+        _require(code == 200 and body["model_size"] == size,
+                 f"serve --aot answered {code}")
+        print(f"serve --aot answered one request: 200, {len(body['scores'])} "
+              f"instances, {dt * 1e3:.1f} ms")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def check_cli_files(params_dir: str, root: str, phase9: dict) -> None:
+    """Phase 10: ``predict`` and ``infer`` through the command line on
+    phase 9's files, with phase 9's weights: the same PNGs and COCO
+    results as its ``predict_paths``, the same metrics as its bf16 folder
+    ``evaluate`` of the scenes."""
+    import os
+
+    from basi_tpu_torch.data.png import read_png
+
+    out_dir = os.path.join(root, "cli_pngs")
+    res = os.path.join(root, "cli_results.json")
+    summary = _last_json(_cli(
+        "predict", "--preset", "val_v4-8_ap",
+        *_sets(["data.dataset=synthetic"]), "--checkpoint", params_dir,
+        "--images", *phase9["paths"], "--out", out_dir, "--results", res))
+    _require(summary["images"] == len(phase9["paths"]), "predict count")
+    for p in phase9["paths"]:
+        stem = os.path.splitext(os.path.basename(p))[0] + ".png"
+        a, _ = read_png(os.path.join(out_dir, stem))
+        b, _ = read_png(os.path.join(root, "pngs", stem))
+        _require(np.array_equal(a, b), f"cli predict: {stem} differs")
+    with open(res) as f, open(os.path.join(root, "results.json")) as g:
+        _require(json.load(f) == json.load(g),
+                 "cli predict: the COCO results differ")
+    gt = phase9["scenes_metrics"]
+    m = _last_json(_cli(
+        "infer", "--preset", "bench_accuracy",
+        *_sets(_folder_overrides(phase9["roots"]["scenes"], "")),
+        "--checkpoint", params_dir))
+    a, b = _metrics_only(m), _metrics_only(gt)
+    _require(a == b, f"cli infer: {a} vs phase 9's {b}")
+    print(f"cli predict ({len(phase9['paths'])} files) and infer (32 "
+          f"scenes) equal phase 9's PNGs, results and metrics")
+
+
+def check_entry_points(dev, phase9: dict, root: str) -> None:
+    """Phase 10: the entry points at ``val_v4-8_ap``, full width, on
+    phase 9's seeded weights written through ``export --out``."""
+    import os
 
     from basi_tpu_torch.config import get_config
 
-    root = tempfile.mkdtemp(prefix="basi_files_")
-    try:
-        jpegs = jpeg_fixtures()
-        paths, roots = write_file_fixtures(root, jpegs)
-        dec = check_decoder(paths, jpegs, roots)
-        cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"])
-        sd = smoke_weights(cfg, gen)
-        pred = run_predict_paths(dev, cfg, sd, paths, root)
-        check_predict_f32(dev, sd, paths, root)
-        ev = run_folder_eval(dev, sd, roots, synthetic_rate)
-        rates = {k: [round(v, 1) for v in r] for k, r in dec["rates"].items()}
-        print(f"phase 9 summary ({dec['route']}): decode + letterbox imgs/s "
-              f"[one by one, batched] {json.dumps(rates)}; get_batch of 16 "
-              f"ms {json.dumps({k: round(r['get_batch_ms'], 1) for k, r in ev.items()})}; "
-              f"predict_paths {pred['imgs_per_s']:.2f} imgs/s; folder "
-              f"evaluate imgs/s by the wall clock "
-              f"{json.dumps({k: round(r['imgs_per_s'], 1) for k, r in ev.items()})}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    pth = os.path.join(root, "weights.pth")
+    torch.save(phase9["sd"], pth)
+    params_dir = os.path.join(root, "params")
+    _cli("export", "--preset", "val_v4-8_ap", "--checkpoint", pth,
+         "--out", params_dir)
+    cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"])
+    bench = run_cli_bench(dev)
+    uploads = list(phase9["paths"][:16])
+    for k, fx in phase9["jpegs"].items():  # the photographs, RGB, 4:2:2
+        if k.startswith("photo") or k in ("rgb", "422"):
+            uploads.append(os.path.join(root, f"upload_{k}.jpg"))
+            with open(uploads[-1], "wb") as f:
+                f.write(fx["bytes"])
+    served = run_server(dev, cfg, params_dir, uploads)
+    with open(uploads[0], "rb") as f:
+        run_aot(dev, cfg, params_dir, root, f.read())
+    check_cli_files(params_dir, root, phase9)
+    print(f"phase 10 summary: bench infer {bench['infer']['value']} "
+          f"imgs/s, train {bench['train_f32']['value']} ms/step (f32), "
+          f"{bench['train_bf16']['value']} (bf16), e2e "
+          f"{bench['e2e']['value']} imgs/s; serve "
+          f"{served['requests_per_s']:.1f} requests/s, p50/p90/p99 "
+          f"{served['p50_ms']:.1f}/{served['p90_ms']:.1f}/"
+          f"{served['p99_ms']:.1f} ms, fill {served['fill']:.2f}")
 
 
 def main() -> int:
@@ -2714,9 +3195,17 @@ def main() -> int:
     check_recipe(dev)
     print(f"phase 8 (the accuracy recipe's path) took "
           f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    check_files(dev, gen, eval_rate)
-    print(f"phase 9 (image files) took {time.perf_counter() - t0:.1f} s")
+    root = tempfile.mkdtemp(prefix="basi_files_")
+    try:
+        t0 = time.perf_counter()
+        phase9 = check_files(dev, gen, eval_rate, root)
+        print(f"phase 9 (image files) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        check_entry_points(dev, phase9, root)
+        print(f"phase 10 (the entry points) took "
+              f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     # launches: each kernel's count over the path it serves, read right
     # after that path's run (upsample_int: the xla training path; the BN

@@ -372,6 +372,32 @@ def test_planes_to_rgb_is_libjpegs_upsampling_and_colour(sub):
                                   N.decode_jpeg(grey.getvalue()))
 
 
+def test_planes_to_rgb_reads_rgb_coded_jpegs():
+    """A JPEG libjpeg reads as RGB-coded (Pillow's ``keep_rgb``: an Adobe
+    marker with transform 0) takes no YCbCr conversion on the nvjpeg
+    route's second half: ``jpeg_is_rgb`` finds it, and ``planes_to_rgb``
+    of libjpeg's components is libjpeg's RGB, byte for byte. The other
+    fixtures are YCbCr (or grey)."""
+    import io
+
+    rng = np.random.RandomState(3)
+    for h, w in ((1, 1), (8, 17), (33, 64)):
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=85, subsampling=0,
+                                  keep_rgb=True)
+        data = buf.getvalue()
+        assert N.jpeg_is_rgb(data)
+        planes, hf, vf = N.jpeg_planes(data)
+        np.testing.assert_array_equal(
+            N.planes_to_rgb(planes, hf, vf, rgb=True), N.decode_jpeg(data))
+        assert not np.array_equal(N.planes_to_rgb(planes, hf, vf),
+                                  N.decode_jpeg(data))
+    for name, fx in JPEGS.items():
+        data = (FIXTURES / fx["file"]).read_bytes()
+        assert N.jpeg_is_rgb(data) == (name == "rgb"), name
+
+
 def _image_files(tmp_path) -> list[str]:
     """JPEGs of every kind, PNGs of several modes, sizes up and down."""
     rng = np.random.RandomState(5)

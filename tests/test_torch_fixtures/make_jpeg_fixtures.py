@@ -2,9 +2,9 @@
 
 The port has no JPEG encoder, so its checks of the JPEG route read files
 made here, with Pillow, and the JAX package's ``NativeDecoder`` decodes of
-them (libjpeg). Four small 37 x 45 images (a gradient, a disc and two
-rectangles: baseline 4:4:4, baseline 4:2:0, greyscale and progressive
-4:2:0) and three at the sizes of COCO and ILSO photographs (smooth
+them (libjpeg). Six small 37 x 45 images (a gradient, a disc and two
+rectangles: baseline 4:4:4, baseline 4:2:0, greyscale, baseline 4:2:2,
+RGB-coded 4:4:4 and progressive 4:2:0) and three at the sizes of COCO and ILSO photographs (smooth
 shading, sharp coloured shapes and sensor-like noise: 640 x 480 baseline
 4:2:0, 640 x 427 progressive 4:2:0 and 612 x 612 baseline 4:4:4).
 ``jpeg.json`` holds, for each file, its shape, the sha256 of the JAX
@@ -66,6 +66,9 @@ FIXTURES = [  # name, image, Pillow's save options
     ("444", small, dict(quality=90, subsampling=0)),
     ("420", small, dict(quality=85, subsampling=2)),
     ("grey", lambda: small()[..., 1], dict(quality=85)),
+    ("422", small, dict(quality=85, subsampling=1)),
+    # RGB-coded: an Adobe marker with transform 0, components 'R' 'G' 'B'
+    ("rgb", small, dict(quality=90, subsampling=0, keep_rgb=True)),
     ("progressive", small, dict(quality=85, subsampling=2, progressive=True)),
     ("photo_420", lambda: photo(480, 640, 1), dict(quality=90, subsampling=2)),
     ("photo_progressive", lambda: photo(427, 640, 2),

@@ -42,6 +42,14 @@ round-trip;
 ``predict_paths`` of the tiny config in f32 on the card against the CPU:
 the same instance counts, scores within 1e-3, at most 0.5% of an image's
 PNG or RLE pixels apart.
+
+The entry points on the card: the custom ops ``basi::upsample_int`` and
+``basi::upsample_sigmoid`` launch the kernels (equal to the wrappers'
+outputs, one launch a call); an artifact exported on the card
+(``aot.py``) equals the live ``predict_batch`` bit for bit and launches
+9 ``upsample_int`` a batch; the HTTP server answers concurrent uploads
+from its handler threads, each label map equal to ``predict_batch`` +
+``full_res_masks`` of its canvas.
 """
 
 from pathlib import Path
@@ -879,7 +887,8 @@ def _jpeg_fixtures():
 @pytest.mark.gpu
 def test_gpu_decoder_builds_and_decodes_the_embedded_jpegs():
     """The JPEG route of the card's machine builds and decodes the JPEG
-    fixtures (4:4:4, 4:2:0, grey and progressive at 37 x 45; 4:2:0,
+    fixtures (4:4:4, 4:2:0, 4:2:2, grey, RGB-coded and progressive at
+    37 x 45; 4:2:0,
     progressive 4:2:0 and 4:4:4 photographs up to 640 x 480) to the JAX
     package's decodes: the digests where the route is libjpeg, within
     ``NVJPEG_MAX_ABS`` and ``NVJPEG_MEAN_ABS`` where it is nvJPEG. The
@@ -1036,3 +1045,132 @@ def test_gpu_predict_paths_matches_cpu(tmp_path, rng):
         a = read_png(tmp_path / "card" / f"{stem}.png")[0]
         b = read_png(tmp_path / "cpu" / f"{stem}.png")[0]
         assert a.shape == b.shape and (a != b).mean() <= 0.005
+
+
+# --- the entry points on the card: custom ops, artifacts, the server ------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,f", [((2, 8, 8, 16), 2), ((8, 16, 16, 256), 4)])
+def test_gpu_upsample_int_custom_op_is_the_kernel(rng, shape, f):
+    """``basi::upsample_int`` on CUDA launches the kernel (equal to the
+    wrapper's output, one launch) and on the CPU runs the plain version."""
+    dev = _cuda()
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    n0 = U.upsample_int.launches
+    got = torch.ops.basi.upsample_int(x, f)
+    torch.cuda.synchronize()
+    assert U.upsample_int.launches == n0 + 1
+    assert torch.equal(got, U.upsample_int(x, f))
+    assert_within_bf16_ulp(got, U.upsample_int_reference(x, f))
+    assert torch.equal(torch.ops.basi.upsample_int(x.cpu(), f),
+                       U.upsample_int_reference(x.cpu(), f))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_upsample_sigmoid_custom_op_is_the_kernel(rng, dtype):
+    dev = _cuda()
+    x = torch.from_numpy(rng.randn(2, 3, 16, 16).astype(np.float32)).to(
+        dev, dtype)
+    n0 = S.upsample_sigmoid.launches
+    got = torch.ops.basi.upsample_sigmoid(x, 64, 64)
+    torch.cuda.synchronize()
+    assert S.upsample_sigmoid.launches == n0 + 1
+    assert torch.equal(got, S.upsample_sigmoid(x, (64, 64)))
+    torch.testing.assert_close(got.cpu(), S.upsample_sigmoid_reference(
+        x, (64, 64)).cpu(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_artifact_exported_on_the_card(tmp_path, rng):
+    """An artifact exported on the card (bf16) loads there, equals the
+    live ``predict_batch`` bit for bit and launches 9 ``upsample_int``
+    kernels a batch; exporting changed no launch counter."""
+    from basi_tpu_torch.aot import load_serving, save_serving
+    from basi_tpu_torch.infer import Inferencer
+
+    dev = _cuda()
+    cfg = _tiny_eval_cfg("infer.dtype=bfloat16")
+    inf = Inferencer(cfg, device=dev, seed=3)
+    x = torch.from_numpy(rng.randint(0, 256, (4, 64, 64, 3)).astype(
+        np.uint8)).to(dev)
+    want = inf.predict_batch(x)
+    n0 = U.upsample_int.launches
+    path = str(tmp_path / "m.basiaot")
+    meta = save_serving(path, cfg, state_dict=inf.model.state_dict(),
+                        device=dev)
+    assert U.upsample_int.launches == n0 and meta["platforms"] == ["cuda"]
+    model = load_serving(path)
+    got = model(x)
+    torch.cuda.synchronize()
+    assert U.upsample_int.launches == n0 + 9
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+    with pytest.raises(ValueError, match="exported for"):
+        load_serving(path, "cpu")
+
+
+@pytest.mark.gpu
+def test_gpu_server_answers_from_handler_threads(rng):
+    """The HTTP server on the card: 12 uploads (PNG and the JPEG
+    fixtures, decoded by nvJPEG or libjpeg in the handler threads) from 6
+    client threads, each answer equal to ``predict_batch`` +
+    ``full_res_masks`` of its canvas."""
+    import base64
+    import json
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from basi_tpu_torch.data.datasets import letterbox_params
+    from basi_tpu_torch.data.letterbox import resize_bilinear_u8
+    from basi_tpu_torch.data.png import decode_png, encode_png, pil_view
+    from basi_tpu_torch.infer import to_numpy
+    from basi_tpu_torch.server import (
+        _serve_in_thread,
+        decode_upload,
+        label_map,
+    )
+
+    from basi_tpu_torch.models.basi import create_model
+
+    _cuda()
+    cfg = _tiny_eval_cfg("infer.score_threshold=0.05")
+    model = create_model(cfg.model, "cpu", torch.Generator().manual_seed(3))
+    with torch.no_grad():  # the focal prior's bias would fill no slot
+        model.instance.score.bias.zero_()
+    base, httpd, svc = _serve_in_thread(cfg, predict_timeout=120,
+                                        state_dict=model.state_dict())
+    try:
+        assert svc.predictor.inf.device.type == "cuda"
+        uploads = [data for _, _, data, _ in _jpeg_fixtures()]
+        uploads += [encode_png(rng.randint(0, 256, (40 + 8 * i, 64, 3))
+                               .astype(np.uint8))
+                    for i in range(12 - len(uploads))]
+
+        def post(data):
+            req = urllib.request.Request(base + "/predict", data=data,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+
+        with ThreadPoolExecutor(6) as pool:
+            answers = list(pool.map(post, uploads))
+        inf = svc.predictor.inf
+        for data, (code, out) in zip(uploads, answers):
+            assert code == 200
+            img = decode_upload(data)
+            vh, vw = letterbox_params(*img.shape[:2], 64)
+            batch = np.zeros((4, 64, 64, 3), np.uint8)
+            batch[0, :vh, :vw] = resize_bilinear_u8(img, vh, vw)
+            masks, scores, _ = inf.predict_batch(batch)
+            full = to_numpy(inf.full_res_masks(masks[:1]))[0]
+            lab, _ = label_map(full, to_numpy(scores)[0], 0.05,
+                               cfg.infer.mask_threshold)
+            got = pil_view(decode_png(base64.b64decode(
+                out["label_png_b64"])))[0]
+            assert np.array_equal(got, lab[:vh, :vw])
+    finally:
+        httpd.shutdown()
+        svc.close()

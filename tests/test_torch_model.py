@@ -165,12 +165,10 @@ def test_unported_settings_raise_not_implemented(overrides):
 @pytest.mark.parametrize("kwargs", [{"aot_path": "x"}, {"checkpoint": "x"}])
 def test_unported_predictor_sources_raise_not_implemented(kwargs, tmp_path,
                                                           monkeypatch):
-    """``aot_path`` is not ported; a checkpoint that is not there raises
-    ``FileNotFoundError`` (checkpoints load since the port has them)."""
+    """Both predictor sources are ported now (checkpoints, and artifacts
+    through ``aot.load_serving``): one that is not there raises
+    ``FileNotFoundError``."""
     monkeypatch.chdir(tmp_path)
-    if "checkpoint" in kwargs:
-        with pytest.raises(FileNotFoundError, match="no checkpoint"):
-            BatchedPredictor(tiny_config(), device="cpu", **kwargs)
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    match = "no checkpoint" if "checkpoint" in kwargs else "x"
+    with pytest.raises(FileNotFoundError, match=match):
         BatchedPredictor(tiny_config(), device="cpu", **kwargs)

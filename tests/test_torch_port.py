@@ -31,9 +31,13 @@ from basi_tpu.data import shards as jax_shards
 from basi_tpu_torch import config as C
 from basi_tpu_torch import convert
 from basi_tpu_torch.data import datasets as D
+from basi_tpu_torch import benchmark, cli
+from basi_tpu_torch.aot import load_serving
+from basi_tpu_torch.data.pipeline import DeviceFeed
 from basi_tpu_torch.infer import Inferencer
 from basi_tpu_torch.models.basi import create_model
 from basi_tpu_torch.serve import BatchedPredictor
+from basi_tpu_torch.server import make_server
 from basi_tpu_torch.train.loop import Trainer
 
 from helpers import tiny_config
@@ -272,11 +276,33 @@ def test_port_sources_import_no_jax():
                  "data/shards.py", "utils/logging.py", "utils/checkpoint.py",
                  "tools/bench_accuracy.py", "data/png.py", "data/native.py",
                  "data/coco.py", "data/clib.py",
-                 "utils/profiling.py"):
+                 "utils/profiling.py", "cli.py", "server.py",
+                 "benchmark.py", "aot.py", "data/pipeline.py",
+                 "utils/tools.py"):
         assert ROOT / "basi_tpu_torch" / part in files, part
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_csrc_sources_are_package_data():
+    """Every file under ``basi_tpu_torch/csrc/`` matches a package-data
+    glob of ``basi_tpu_torch``: an installed port builds its kernels and
+    its PNG and JPEG libraries from them on first use."""
+    import fnmatch
+    import tomllib
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    globs = data["basi_tpu_torch"]
+    files = sorted(p.relative_to(ROOT / "basi_tpu_torch").as_posix()
+                   for p in (ROOT / "basi_tpu_torch" / "csrc").rglob("*")
+                   if p.is_file())
+    assert any(f.endswith(".cc") for f in files)
+    assert any(f.endswith(".cu") for f in files)
+    missed = [f for f in files
+              if not any(fnmatch.fnmatch(f, g) for g in globs)]
+    assert not missed, missed
 
 
 def test_import_scan_sees_nested_imports(tmp_path):
@@ -293,6 +319,14 @@ ENTRY_POINTS = {
     "Inferencer": lambda cfg: Inferencer(cfg),
     "BatchedPredictor": lambda cfg: BatchedPredictor(cfg).close(),
     "Trainer": lambda cfg: Trainer(cfg),
+    "DeviceFeed": lambda cfg: DeviceFeed(D.SyntheticDataset(n=4), 2),
+    "make_server": lambda cfg: make_server(cfg, port=0),
+    "load_serving": lambda cfg: load_serving("no-such.basiaot"),
+    "bench infer": lambda cfg: benchmark._bench_infer(iters=1),
+    "cli infer": lambda cfg: cli.main(["infer"]),
+    "cli serve": lambda cfg: cli.main(["serve", "--port", "0"]),
+    "cli pack": lambda cfg: cli.main(["pack", "--out", "no-such-dir"]),
+    "cli bench": lambda cfg: cli.main(["bench", "--mode", "train"]),
 }
 
 
