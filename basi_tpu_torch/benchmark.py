@@ -141,13 +141,17 @@ def _bench_train(batch_size: int = 16, iters: int = 24,
                  device=DEFAULT_DEVICE) -> dict:
     from basi_tpu_torch.config import get_config
     from basi_tpu_torch.data.transforms import pack_masks_host
-    from basi_tpu_torch.models.basi import create_model
+    from basi_tpu_torch.models.basi import cast_params, create_model
     from basi_tpu_torch.train.state import (
         check_train_config,
         create_train_state,
         make_schedule,
     )
-    from basi_tpu_torch.train.step import compute_dtype, make_train_step
+    from basi_tpu_torch.train.step import (
+        compute_dtype,
+        make_train_step,
+        param_dtype,
+    )
 
     # The function default is a BASE override so --set can change it; the
     # final values are read back from cfg.
@@ -158,9 +162,11 @@ def _bench_train(batch_size: int = 16, iters: int = 24,
     bs = cfg.data.batch_size
     size = cfg.model.image_size
     m = cfg.data.max_instances
-    model = create_model(cfg.model, dev,
-                         torch.Generator().manual_seed(cfg.train.seed),
-                         train=True)
+    model = cast_params(
+        create_model(cfg.model, dev,
+                     torch.Generator().manual_seed(cfg.train.seed),
+                     train=True),
+        param_dtype(cfg.model))
     state = create_train_state(model, cfg.train)
     step = make_train_step(cfg.train, cfg.data, make_schedule(cfg.train, 1000),
                            compute_dtype(cfg.model))

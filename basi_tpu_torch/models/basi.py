@@ -7,21 +7,33 @@ views are free. ``forward(image, train=...)``: eval runs BN on running
 statistics; train runs it on batch statistics, updates the running ones
 (flax's rule) and adds the saliency deep-supervision outputs. Activations
 take the image's dtype while the params may stay f32 (the JAX package's
-mixed precision, ``models/layers.py``). No candidate-mask tensor in either
-mode: selection applies only the top-k kernels
+mixed precision, ``models/layers.py``). Serving and the default train loss
+make no candidate-mask tensor: selection applies only the top-k kernels
 (``ops.nms.select_instances_from_kernels``) and the loss only the positive
-cells' kernels.
+cells' kernels; ``with_candidates`` adds the (N, S*S, H/4, W/4) candidates
+for the dense loss (``train.max_pos_cells=0``).
+
+Two train settings act on the trunk alone, as the JAX model's
+``bn_frozen`` and ``remat``: ``frozen_bn`` runs it in eval mode (running
+statistics, which never move; the BN scales and biases still train), and
+``remat`` wraps it in ``torch.utils.checkpoint`` so its activations are
+recomputed in the backward, under ``layers.no_running_update``: the
+recompute moves no running statistic a second time (under ``bn_impl``
+fused or stats it does launch the forward's ``channel_moments`` again).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from basi_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from basi_tpu_torch.models.fpn import FPN
+from basi_tpu_torch.models.layers import no_running_update
 from basi_tpu_torch.models.heads import (
     InstanceKernelHead,
     MaskFeatureHead,
@@ -45,6 +57,8 @@ class BASIOutputs(NamedTuple):
     mask_feats: torch.Tensor  # (N, H/4, W/4, E) unified mask features
     # per-level deep supervision (N, H/4, W/4, 1), train mode only
     saliency_aux: tuple[torch.Tensor, ...] = ()
+    # (N, S*S, H/4, W/4) candidate masks, with_candidates only
+    mask_logits: torch.Tensor | None = None
 
 
 class BASINet(nn.Module):
@@ -67,14 +81,25 @@ class BASINet(nn.Module):
         self.instance = InstanceKernelHead(fpn_channels, 128, mask_channels,
                                            grid_size, 3)
 
-    def forward(self, image: torch.Tensor,
-                train: bool | None = None) -> BASIOutputs:
+    def forward(self, image: torch.Tensor, train: bool | None = None, *,
+                frozen_bn: bool = False, remat: bool = False,
+                with_candidates: bool = False) -> BASIOutputs:
         """image: (N, H, W, 3) normalized, in the compute dtype. ``train``
-        defaults to the module's mode (``create_model(..., train=True)``)."""
+        defaults to the module's mode (``create_model(..., train=True)``);
+        ``frozen_bn`` and ``remat`` act on the trunk (module doc)."""
         train = self.training if train is None else train
         x = image.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        pyramid = self.fpn(list(self.backbone(x, train)))
+        trunk_train = train and not frozen_bn
+        if remat and torch.is_grad_enabled():
+            feats = checkpoint(
+                self.backbone, x, trunk_train, use_reentrant=False,
+                preserve_rng_state=False,  # the trunk draws nothing
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    no_running_update(self.backbone)))
+        else:
+            feats = self.backbone(x, trunk_train)
+        pyramid = self.fpn(list(feats))
         sal, aux = self.saliency(pyramid, with_aux=train)
         mask_feats = self.maskfeat(pyramid)
         scores, kernels = self.instance(pyramid[1])  # P3, stride 8
@@ -82,8 +107,24 @@ class BASINet(nn.Module):
         def nhwc(t):
             return t.permute(0, 2, 3, 1)
 
-        return BASIOutputs(nhwc(sal), nhwc(scores), nhwc(kernels),
-                           nhwc(mask_feats), tuple(nhwc(a) for a in aux))
+        out = BASIOutputs(nhwc(sal), nhwc(scores), nhwc(kernels),
+                          nhwc(mask_feats), tuple(nhwc(a) for a in aux))
+        if with_candidates:
+            out = out._replace(mask_logits=candidate_masks(
+                out.mask_feats, out.cell_kernels))
+        return out
+
+
+def candidate_masks(mask_feats: torch.Tensor,
+                    kernels: torch.Tensor) -> torch.Tensor:
+    """Every cell's dynamic kernel applied to the mask features: (N, H, W,
+    E) and (N, S, S, E) -> (N, S*S, H, W) logits, products summed in f32
+    and rounded to the features' dtype (the JAX package's
+    ``heads.candidate_masks``)."""
+    n, s1, s2, e = kernels.shape
+    k = kernels.reshape(n, s1 * s2, e)
+    return torch.einsum("nhwe,nke->nkhw", mask_feats.float(),
+                        k.float()).to(mask_feats.dtype)
 
 
 def check_model_config(mcfg) -> None:
@@ -102,7 +143,8 @@ def create_model(mcfg, device=DEFAULT_DEVICE,
     another is named), f32, ``channels_last``, BatchNorms of
     ``model.bn_impl``, with random weights from ``generator`` (seed 0 when
     omitted), in eval mode (serving) or, with ``train``, in train mode with
-    f32 master params for ``train.step``; load real weights with
+    f32 master params for ``train.step`` (``cast_params`` for others);
+    load real weights with
     ``convert.load_jax_variables`` or ``load_state_dict``."""
     check_model_config(mcfg)
     with torch.device("meta"):  # no throwaway default init
@@ -111,6 +153,16 @@ def create_model(mcfg, device=DEFAULT_DEVICE,
     model = model.to_empty(device=resolve_device(device))
     init_weights(model, generator or torch.Generator().manual_seed(0))
     return model.to(memory_format=torch.channels_last).train(train)
+
+
+@torch.no_grad()
+def cast_params(model: BASINet, dtype: torch.dtype) -> BASINet:
+    """Hold every parameter in ``dtype`` (``model.param_dtype``); buffers,
+    the BN running statistics among them, stay f32, as flax keeps its
+    ``batch_stats``. In place; returns the model."""
+    for p in model.parameters():
+        p.data = p.data.to(dtype)
+    return model
 
 
 @torch.no_grad()

@@ -16,18 +16,42 @@ output f32). These subclasses write the contract out:
   moves the running ones as flax does, ``ra = 0.9 * ra + 0.1 * stat`` with
   the *biased* variance (``nn.BatchNorm2d`` would use momentum 0.1 on the
   unbiased one). Eval mode reads the running statistics whatever the
-  module's ``training``.
+  module's ``training``. Inside ``no_running_update`` (the trunk's
+  recompute under ``train.remat``) train mode keeps no statistics, so the
+  running ones move once a step. Params held in bf16
+  (``model.param_dtype``) enter the normalization widened to the f32
+  statistics, as flax's BatchNorm promotes them.
 
 State-dict names are ``nn``'s, so ``export_basinet`` output loads as before.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 BN_MOMENTUM = 0.9  # flax's: the weight of the old running value
+
+
+@contextlib.contextmanager
+def no_running_update(module: nn.Module):
+    """The train-mode BatchNorms of ``module`` keep no batch statistics
+    inside, so ``update_running_stats`` finds nothing of theirs: the
+    context of a checkpointed trunk's recompute, which runs in the
+    backward."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for bn in bns:
+        bn.keeps_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.keeps_stats = True
+
+
 
 
 class Conv2d(nn.Conv2d):
@@ -50,17 +74,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     # True where batch_stats holds (mean, biased var) itself
     # (models/norm.py's FusedBatchNorm)
     stats_hold_var = False
+    keeps_stats = True  # False inside no_running_update
+
+    def scale_bias(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(scale, bias) in the running statistics' dtype: bf16 params
+        (``model.param_dtype``) widened to the f32 statistics; a model cast
+        whole to one dtype (serving) as it is."""
+        dt = self.running_mean.dtype
+        return self.weight.to(dt), self.bias.to(dt)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        weight, bias = self.scale_bias()
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                weight, bias, False, 0.0, self.eps)
         # Normalize with the batch statistics (taken in f32 from a bf16
         # input; the output keeps the input's dtype) and keep them for the
         # running update.
         y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
-        self.batch_stats = (mean.detach(), invstd.detach())
+            x, weight, bias, None, None, True, 0.0, self.eps)
+        if self.keeps_stats:
+            self.batch_stats = (mean.detach(), invstd.detach())
         return y
 
 

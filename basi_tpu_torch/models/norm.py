@@ -133,13 +133,15 @@ class FusedBatchNorm(BatchNorm2d):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
             return super().forward(x, False)
+        weight, bias = self.scale_bias()
         if self.mode == "stats":
             mean, var, _, a, b = bn_forward_math(
-                *batch_moments(x), self.weight, self.bias, self.eps)
+                *batch_moments(x), weight, bias, self.eps)
             y = _apply(x, a, b)
         else:
-            y, mean, var = bn_train_apply(x, self.weight, self.bias, self.eps)
-        self.batch_stats = (mean.detach(), var.detach())
+            y, mean, var = bn_train_apply(x, weight, bias, self.eps)
+        if self.keeps_stats:
+            self.batch_stats = (mean.detach(), var.detach())
         return y
 
 

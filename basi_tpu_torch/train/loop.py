@@ -13,8 +13,10 @@ The host feed is ``data/pipeline.py``'s ``DeviceFeed`` (shuffled by
 ``train.seed + epoch``, masks bit-packed): a thread assembles each batch,
 copies it into pinned memory and starts non-blocking copies to the device
 on a side stream, a bounded queue ahead of the step; the step's stream
-waits for the copy's event. Settings outside the slice raise
-``NotImplementedError`` (``train.state.check_train_config``).
+waits for the copy's event. Every training setting of the JAX package
+runs but two, which raise ``NotImplementedError``
+(``train.state.check_train_config``): ``train.steps_per_dispatch > 1`` and
+multi-device training.
 
 With ``train.checkpoint_dir`` the whole train state is saved after each
 epoch's eval and every ``train.checkpoint_every_steps`` steps, never twice
@@ -41,20 +43,25 @@ from basi_tpu_torch.data.datasets import make_dataset
 from basi_tpu_torch.data.pipeline import DeviceFeed
 from basi_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from basi_tpu_torch.infer import Inferencer
-from basi_tpu_torch.models.basi import create_model
+from basi_tpu_torch.models.basi import cast_params, create_model
 from basi_tpu_torch.train.state import (
     check_train_config,
     create_train_state,
     make_schedule,
 )
-from basi_tpu_torch.train.step import compute_dtype, make_train_step
+from basi_tpu_torch.train.step import (
+    compute_dtype,
+    make_train_step,
+    param_dtype,
+)
 from basi_tpu_torch.utils.checkpoint import CheckpointManager
 from basi_tpu_torch.utils.logging import MetricLogger
 
 
 class Trainer:
     def __init__(self, cfg: Config, device=DEFAULT_DEVICE):
-        """Weights, batch order and flips all follow ``train.seed``; runs
+        """Weights, batch order and augmentation draws all follow
+        ``train.seed``; runs
         on the card unless ``device`` names another."""
         check_train_config(cfg)
         self.cfg = cfg
@@ -80,9 +87,11 @@ class Trainer:
                 f"batch of {cfg.data.batch_size}")
         self.max_steps = self.steps_per_epoch * cfg.train.epochs
         self.schedule = make_schedule(cfg.train, self.max_steps)
-        model = create_model(cfg.model, self.device,
-                             torch.Generator().manual_seed(cfg.train.seed),
-                             train=True)
+        model = cast_params(
+            create_model(cfg.model, self.device,
+                         torch.Generator().manual_seed(cfg.train.seed),
+                         train=True),
+            param_dtype(cfg.model))
         self.state = create_train_state(model, cfg.train)
         if self.ckpt is not None:
             self.state = self.ckpt.maybe_resume(self.state, t.resume)

@@ -6,8 +6,15 @@ The JAX package's optimizer is the optax chain clip-by-global-norm ->
 ``g + m * trace`` -> ``-lr * trace``, with ``lr = schedule(count)`` and the
 count starting at 0. ``clip_by_global_norm`` below writes optax's formula;
 ``torch.optim.SGD`` (momentum, ``weight_decay``, no dampening) is the rest
-of the chain, its lr set from the schedule before each update. The EMA
-holds f32 copies of the params (no BN statistics) and starts at them.
+of the chain, its lr set from the schedule before each update. With
+``train.optimizer=adamw`` the rest is ``optax.adamw(schedule,
+weight_decay)``: Adam with b1 0.9, b2 0.999, eps 1e-8 (outside the square
+root), then ``lr * wd * param`` decoupled, on every leaf, which is
+``torch.optim.AdamW``'s function with its arithmetic in another order.
+The optimizer state takes the params' dtype (``model.param_dtype``), as
+optax's does. The EMA holds f32 copies of the params (no BN statistics)
+and starts at them: under bf16 params the JAX EMA starts in bf16 and its
+first update (an f32 decay) makes it f32.
 """
 
 from __future__ import annotations
@@ -61,23 +68,14 @@ def _schedule(kind: str, base_lr: float, max_steps: int, power: float,
 
 def check_train_config(cfg) -> None:
     """Raise NotImplementedError for training settings outside the port."""
-    t, d = cfg.train, cfg.data
     todo = [
-        (d.multiscale, "data.multiscale"),
-        (any(v > 0 for v in d.color_jitter), "data.color_jitter"),
-        (t.grad_accum > 1, "train.grad_accum > 1"),
-        (t.steps_per_dispatch > 1, "train.steps_per_dispatch > 1"),
-        (t.freeze_bn, "train.freeze_bn"),
-        (t.remat, "train.remat"),
-        (t.optimizer == "adamw", "train.optimizer='adamw'"),
+        (cfg.train.steps_per_dispatch > 1, "train.steps_per_dispatch > 1"),
         (cfg.parallel.num_devices > 1 or cfg.parallel.spatial_shards > 1,
          "multi-device training"),
     ]
     for bad, what in todo:
         if bad:
             raise NotImplementedError(f"{what} not yet ported")
-    if t.optimizer != "sgd":
-        raise ValueError(f"unknown train.optimizer {t.optimizer!r} (sgd | adamw)")
 
 
 @torch.no_grad()
@@ -95,19 +93,34 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Ten
     return norm
 
 
-def make_optimizer(cfg_train, params) -> torch.optim.SGD:
-    """The SGD part of the chain (momentum trace, decayed weights on every
-    leaf); its lr is set from the schedule before each step."""
+def make_optimizer(cfg_train, params) -> torch.optim.Optimizer:
+    """The chain after the clip: SGD (momentum trace, decayed weights on
+    every leaf) or AdamW (``train.optimizer``); its lr is set from the
+    schedule before each step."""
+    if cfg_train.optimizer == "adamw":
+        return torch.optim.AdamW(list(params), lr=0.0, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=cfg_train.weight_decay)
+    if cfg_train.optimizer != "sgd":
+        raise ValueError(f"unknown train.optimizer {cfg_train.optimizer!r} "
+                         "(sgd | adamw)")
     return torch.optim.SGD(list(params), lr=0.0, momentum=cfg_train.momentum,
                            weight_decay=cfg_train.weight_decay)
 
 
+def ema_of(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """f32 (or wider) copies of the model's params: a fresh EMA."""
+    return {k: p.detach().to(torch.promote_types(p.dtype, torch.float32),
+                             copy=True)
+            for k, p in model.named_parameters()}
+
+
 @dataclass
 class TrainState:
-    """What a step reads and updates in place: the model (f32 master params
-    and BN running statistics), the optimizer (momentum buffers), the EMA
-    of the params (or None), the step count and the generator that draws
-    the augmentation (flip flags)."""
+    """What a step reads and updates in place: the model (master params in
+    ``model.param_dtype`` and f32 BN running statistics), the optimizer
+    (momentum buffers or Adam moments), the EMA of the params (or None),
+    the step count and the generator that draws the augmentation
+    (``train/step.py::draw_augment``)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -117,12 +130,12 @@ class TrainState:
 
 
 def create_train_state(model: torch.nn.Module, cfg_train) -> TrainState:
-    """Fresh state around ``model``: empty momentum, EMA at the params
-    (``train.ema_decay > 0``), step 0, a CPU generator seeded from
-    ``train.seed`` (the same flags on every device)."""
+    """Fresh state around ``model``: empty optimizer state, EMA at the
+    params (``train.ema_decay > 0``), step 0, a CPU generator seeded from
+    ``train.seed`` (the same draws on every device)."""
     ema = None
     if cfg_train.ema_decay > 0:
-        ema = {k: p.detach().clone() for k, p in model.named_parameters()}
+        ema = ema_of(model)
     return TrainState(model=model,
                       optimizer=make_optimizer(cfg_train, model.parameters()),
                       ema=ema, step=0,

@@ -1,29 +1,50 @@
 """The single-device train step (port of ``basi_tpu/train/step.py``).
 
-One call does, in the JAX step's order: draw the flip flags from the
-state's generator; unpack the bit-packed GT masks on the device;
-``normalize_and_flip`` the uint8 images into the compute dtype (the CUDA
-kernel on the card); ``instance_stats`` on the full-resolution masks, with
-``cx``, ``x0`` and ``x1`` mirrored for flipped images; the masks max-pooled
-to /4, then flipped; the train-mode forward, the loss and the backward;
-then clip, weight decay, momentum SGD and the EMA update with the
-``min(d, (1 + t) / (10 + t))`` ramp. The state is updated in place (the
-JAX step returns a new one): params, momentum and EMA are written where
-they lie, so no second copy of them is ever held.
+One call does, in the JAX step's order, for each of ``train.grad_accum``
+micro-batches: the augmentation draws (``draw_augment``); unpack the
+bit-packed GT masks on the device; ``normalize_and_flip`` the uint8 images
+into the compute dtype (the CUDA kernel on the card); the colour jitter
+(``data.color_jitter``); then either the scale jitter (``data.multiscale``:
+the full-resolution masks flipped and cast to f32, image and masks zoomed
+by ``data/transforms.py::random_augment``, the loss taking its statistics
+from them) or ``instance_stats`` on the full-resolution masks, with ``cx``,
+``x0`` and ``x1`` mirrored for flipped images, and the masks max-pooled to
+/4, then flipped; the train-mode forward (the trunk frozen or
+rematerialized by ``train.freeze_bn`` and ``train.remat``; every cell's
+candidate mask when ``train.max_pos_cells=0``), the loss and the backward.
+Micro-batches run in turn, each normalizing its own loss and moving the
+BN running statistics in sequence; the gradient kept is their mean,
+accumulated as ``g / accum`` as JAX's scan carries it, and the metrics
+are averaged. Then one clip, one update (SGD or AdamW) and one EMA update
+with the ``min(d, (1 + t) / (10 + t))`` ramp. The state is updated in
+place (the JAX step returns a new one): params, optimizer state and EMA
+are written where they lie, so no second copy of them is ever held.
 
-The flip flags come from a ``torch.Generator``, not JAX's threefry, so the
-two draw different flips from the same seed; with ``hflip_prob`` 0 or 1
-both draw the same (none or all).
+The draws: ``draw_augment(state, n, cfg_data)`` takes every random number
+of one micro-batch from the state's ``torch.Generator``, in one fixed
+order whatever the settings (flip, scale, the two offsets, the three
+jitter factors), so turning one augmentation on changes none of the
+others' draws, as JAX's key tree keeps them apart. JAX draws from
+threefry keys (``fold_in(fold_in(rng, step), 0)``, then ``fold_in`` of
+the micro-batch's index under accumulation, split into the flip key and
+the augmentation key), so the same seed gives other numbers here; the
+parity tests monkeypatch ``draw_augment`` with the numbers of JAX's key
+tree. With ``hflip_prob`` 0 or 1 and no other augmentation both sides
+draw alike (no flip, or all).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from basi_tpu_torch.data.transforms import maybe_unpack_masks
+from basi_tpu_torch.data.transforms import (
+    color_jitter,
+    maybe_unpack_masks,
+    random_augment,
+)
 from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
 from basi_tpu_torch.ops.resize import maxpool_hw
 from basi_tpu_torch.train.loss import basi_loss
@@ -34,25 +55,76 @@ MASK_STRIDE = 4  # the mask features are H/4 x W/4
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _dtype(name: str, what: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"unknown {what} {name!r} (float32 | bfloat16)")
+    return _DTYPES[name]
+
+
 def compute_dtype(mcfg) -> torch.dtype:
-    """The activations' dtype (``model.dtype``); params stay
-    ``model.param_dtype``, which must be float32."""
-    if mcfg.param_dtype != "float32":
-        raise NotImplementedError(
-            f"model.param_dtype={mcfg.param_dtype!r} not yet ported")
-    if mcfg.dtype not in _DTYPES:
-        raise ValueError(f"unknown model.dtype {mcfg.dtype!r}")
-    return _DTYPES[mcfg.dtype]
+    """The activations' dtype (``model.dtype``)."""
+    param_dtype(mcfg)  # an unknown param_dtype fails as early
+    return _dtype(mcfg.dtype, "model.dtype")
 
 
-def prepare_batch(batch: dict, flip: torch.Tensor, cfg_data, dtype):
-    """(images in ``dtype``, /4 float masks, valid, full-res stats) from a
-    device batch with uint8 ``image`` (N, H, W, 3), ``masks`` raw or
-    bit-packed and ``valid`` (N, M)."""
+def param_dtype(mcfg) -> torch.dtype:
+    """The master params' dtype (``model.param_dtype``)."""
+    return _dtype(mcfg.param_dtype, "model.param_dtype")
+
+
+class AugmentDraws(NamedTuple):
+    """One micro-batch's draws, (n,) each: flip flags (int32, 1 with
+    probability ``hflip_prob``), scale in [lo, hi) of ``scale_range``,
+    offsets in [0, 1), and the brightness, contrast and saturation factors
+    in [max(0, 1 - x), 1 + x) of ``color_jitter``'s strengths (f32)."""
+
+    flip: torch.Tensor
+    scale: torch.Tensor
+    off_y: torch.Tensor
+    off_x: torch.Tensor
+    brightness: torch.Tensor
+    contrast: torch.Tensor
+    saturation: torch.Tensor
+
+
+def draw_augment(state: TrainState, n: int, cfg_data) -> AugmentDraws:
+    """Every draw of one micro-batch of ``n`` images from the state's
+    generator (on the CPU: the same numbers on every device), all seven
+    vectors always, in ``AugmentDraws``' order."""
+    u = torch.rand(7, n, generator=state.generator)
+
+    def between(row, lo, hi):
+        return u[row] * np.float32(hi - lo) + np.float32(lo)
+
+    lo, hi = cfg_data.scale_range
+    jit = [between(4 + i, max(0.0, 1.0 - x), 1.0 + x)
+           for i, x in enumerate(cfg_data.color_jitter)]
+    return AugmentDraws((u[0] < cfg_data.hflip_prob).to(torch.int32),
+                        between(1, lo, hi), u[2], u[3], *jit)
+
+
+def prepare_batch(batch: dict, draws: AugmentDraws, cfg_data, dtype):
+    """(images in ``dtype``, float masks, valid, full-resolution stats or
+    None) from a device batch with uint8 ``image`` (N, H, W, 3), ``masks``
+    raw or bit-packed and ``valid`` (N, M): the masks at /4 with their
+    stats, or under ``data.multiscale`` at full resolution, rescaled with
+    the image, and no stats (the loss takes them from the masks)."""
     images = batch["image"]
+    flip = draws.flip.to(images.device, non_blocking=True)
     gt_u8 = maybe_unpack_masks(batch["masks"], images.shape[2])
     imgs = normalize_and_flip(images, flip, mean=tuple(cfg_data.mean),
                               std=tuple(cfg_data.std), out_dtype=dtype)
+    if any(v > 0 for v in cfg_data.color_jitter):
+        imgs = color_jitter(imgs, cfg_data.mean, cfg_data.std,
+                            *cfg_data.color_jitter, draws.brightness,
+                            draws.contrast, draws.saturation)
+    flipped = flip[:, None, None, None] > 0
+    if cfg_data.multiscale:
+        masks = gt_u8.float()
+        masks = torch.where(flipped, masks.flip(3), masks)
+        imgs, masks = random_augment(imgs, masks, draws.scale, draws.off_y,
+                                     draws.off_x)
+        return imgs, masks, batch["valid"], None
     stats = instance_stats(gt_u8, batch["valid"])
     fx = flip[:, None] > 0
     x0, x1 = stats["x0"], stats["x1"]
@@ -60,18 +132,21 @@ def prepare_batch(batch: dict, flip: torch.Tensor, cfg_data, dtype):
     stats["x0"] = torch.where(fx, 1.0 - x1, x0)
     stats["x1"] = torch.where(fx, 1.0 - x0, x1)
     small = maxpool_hw(gt_u8, MASK_STRIDE, MASK_STRIDE)
-    small = torch.where(flip[:, None, None, None] > 0, small.flip(3), small)
+    small = torch.where(flipped, small.flip(3), small)
     return imgs, small.float(), batch["valid"], stats
 
 
-def loss_and_grads(state: TrainState, batch: dict, flip: torch.Tensor,
+def loss_and_grads(state: TrainState, batch: dict, draws: AugmentDraws,
                    cfg_train, cfg_data, dtype):
-    """Forward in train mode (BN running statistics update), the loss and
-    its backward into the params' ``.grad``. Returns (loss, metrics)."""
-    imgs, masks, valid, stats = prepare_batch(batch, flip, cfg_data, dtype)
+    """Forward in train mode (BN running statistics update unless
+    ``train.freeze_bn``), the loss and its backward into the params'
+    ``.grad`` (set, not added to). Returns (loss, metrics)."""
+    imgs, masks, valid, stats = prepare_batch(batch, draws, cfg_data, dtype)
     model = state.model
     model.zero_grad(set_to_none=True)
-    out = model(imgs, train=True)
+    dense = cfg_train.max_pos_cells <= 0
+    out = model(imgs, train=True, frozen_bn=cfg_train.freeze_bn,
+                remat=cfg_train.remat, with_candidates=dense)
     loss, metrics = basi_loss(
         out, masks, valid, loss_kind=cfg_train.loss,
         mask_weight=cfg_train.mask_loss_weight,
@@ -82,12 +157,38 @@ def loss_and_grads(state: TrainState, batch: dict, flip: torch.Tensor,
     return loss, metrics
 
 
-def draw_flip(state: TrainState, n: int, hflip_prob: float,
-              device) -> torch.Tensor:
-    """(n,) int32 flags, 1 with probability ``hflip_prob``, from the
-    state's generator (on the CPU, then copied to ``device``)."""
-    u = torch.rand(n, generator=state.generator)
-    return (u < hflip_prob).to(torch.int32).to(device, non_blocking=True)
+def accumulate_grads(state: TrainState, batch: dict, cfg_train, cfg_data,
+                     dtype) -> dict:
+    """The mean gradient of ``train.grad_accum`` micro-batches of
+    ``batch`` into the params' ``.grad``, each micro-batch with its own
+    draws; returns the metrics, averaged over them."""
+    accum = cfg_train.grad_accum
+    n = batch["image"].shape[0]
+    if accum < 1 or n % accum:
+        raise ValueError(f"train.grad_accum={accum} does not divide the "
+                         f"batch size {n}")
+    params = list(state.model.parameters())
+    acc = None
+    metrics = []
+    for i in range(accum):
+        micro = {k: batch[k].chunk(accum)[i] for k in ("image", "masks",
+                                                        "valid")}
+        draws = draw_augment(state, n // accum, cfg_data)
+        _, m = loss_and_grads(state, micro, draws, cfg_train, cfg_data, dtype)
+        metrics.append({k: v.detach() for k, v in m.items()})
+        if accum == 1:
+            return metrics[0]
+        with torch.no_grad():
+            g = [p.grad for p in params]
+            torch._foreach_div_(g, float(accum))
+            if acc is None:
+                acc = g
+            else:
+                torch._foreach_add_(acc, g)
+    for p, g in zip(params, acc):
+        p.grad = g
+    return {k: torch.stack([m[k] for m in metrics]).mean(0)
+            for k in metrics[0]}
 
 
 def make_train_step(cfg_train, cfg_data, schedule: Schedule, dtype
@@ -99,10 +200,7 @@ def make_train_step(cfg_train, cfg_data, schedule: Schedule, dtype
     clip = float(cfg_train.grad_clip_norm)
 
     def step(state: TrainState, batch: dict) -> dict:
-        n = batch["image"].shape[0]
-        flip = draw_flip(state, n, cfg_data.hflip_prob, batch["image"].device)
-        _, metrics = loss_and_grads(state, batch, flip, cfg_train, cfg_data,
-                                    dtype)
+        metrics = accumulate_grads(state, batch, cfg_train, cfg_data, dtype)
         named = dict(state.model.named_parameters())
         with torch.no_grad():
             if clip > 0:
@@ -120,6 +218,6 @@ def make_train_step(cfg_train, cfg_data, schedule: Schedule, dtype
                 torch._foreach_mul_(ema, float(d))
                 torch._foreach_add_(ema, list(named.values()),
                                     alpha=float(np.float32(1) - d))
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return step

@@ -4,9 +4,12 @@ The JAX functions work on one image and are ``vmap``-ed; these take the
 batch dimension N first. Rule (center region, SOLO-flavoured): a cell is
 positive for an instance when the cell's centre lies inside the instance's
 centre box (centre +/- sigma * extent / 2, at least half a cell); a cell
-claimed by several instances goes to the smallest. The sparse path keeps
-the first ``max_pos_cells`` cells of a stable sort that puts positives
-first, so positives beyond the cap drop by index, as in JAX.
+claimed by several instances goes to the smallest. The GT goes to the mask
+resolution by max-pool where it is an integer multiple of it, else by a
+bilinear resize thresholded at 0.5. The sparse path keeps the first
+``max_pos_cells`` cells of a stable sort that puts positives first, so
+positives beyond the cap drop by index, as in JAX; the dense path
+(``assign_targets``) gives every cell its target.
 
 Shapes: gt_masks (N, M, H, W) 0/1 (any dtype), gt_valid (N, M).
 """
@@ -15,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from basi_tpu_torch.ops.resize import maxpool_hw
+from basi_tpu_torch.ops.resize import maxpool_hw, resize_bilinear
 
 _EPS = 1e-6
 
@@ -87,14 +90,27 @@ def _assignment_core(gt_masks, gt_valid, grid_size: int, mask_hw,
     mh, mw = mask_hw
     gh, gw = gt_masks.shape[-2:]
     fh, fw = gh // mh, gw // mw
-    if fh * mh != gh or fw * mw != gw or fh < 1:
-        raise NotImplementedError(
-            f"GT masks {gh}x{gw} are not an integer multiple of the mask "
-            f"resolution {mh}x{mw}: the bilinear fallback is not yet ported")
-    small = maxpool_hw(gt_masks, fh, fw).float()
-    n = gt_masks.shape[0]
+    n, m = gt_masks.shape[:2]
+    if fh * mh == gh and fw * mw == gw and fh >= 1:
+        small = maxpool_hw(gt_masks, fh, fw).float()
+    else:  # not an integer factor: bilinear, then the 0.5 threshold
+        hwc = gt_masks.float().reshape(n * m, gh, gw, 1)
+        small = (resize_bilinear(hwc, (mh, mw)) > 0.5).float()
+        small = small.reshape(n, m, mh, mw)
     return (small, winner.reshape(n, -1), any_hit.reshape(n, -1).float(),
             any_hit.float()[..., None])
+
+
+def assign_targets(gt_masks, gt_valid, grid_size: int = 16,
+                   mask_hw=(128, 128), center_sigma: float = 0.2,
+                   stats: dict | None = None):
+    """Dense targets of every cell: (cell_target_mask (N, S*S, h, w) f32,
+    cell_pos (N, S*S) f32, cell_score_tgt (N, S, S, 1) f32)."""
+    small, flat_winner, cell_pos, score_tgt = _assignment_core(
+        gt_masks, gt_valid, grid_size, mask_hw, center_sigma, stats)
+    rows = torch.arange(small.shape[0], device=small.device)[:, None]
+    tgt = small[rows, flat_winner] * cell_pos[..., None, None]
+    return tgt, cell_pos, score_tgt
 
 
 def assign_targets_sparse(gt_masks, gt_valid, grid_size: int = 16,

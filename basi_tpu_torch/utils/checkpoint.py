@@ -3,9 +3,10 @@
 
 The JAX package saves with orbax, which needs jax; the port writes torch
 files. A checkpoint is one directory per saved step, ``<dir>/<step>/``,
-holding ``state.pt``: the model's state dict (f32 master params and the
-BatchNorm running statistics), the SGD momentum (the optimizer's state
-dict), the EMA of the params (or None), the step and the flip generator's
+holding ``state.pt``: the model's state dict (master params and the
+BatchNorm running statistics), the optimizer's state dict (SGD momentum or
+the Adam moments and count, in the params' dtype) and its class name, the
+EMA of the params (or None), the step and the augmentation generator's
 state. A save writes into a directory whose name is unique to its writer
 (``.tmp-<step>-*``), syncs the file, then moves the directory into place
 with ``os.replace``: a crash never leaves a half-written step under a step
@@ -26,6 +27,8 @@ import shutil
 import tempfile
 
 import torch
+
+from basi_tpu_torch.train.state import ema_of
 
 FORMAT = "basi-torch-train-state-v1"
 STATE_FILE = "state.pt"
@@ -86,6 +89,7 @@ class CheckpointManager:
             "model": {k: v.detach()
                       for k, v in state.model.state_dict().items()},
             "optimizer": state.optimizer.state_dict(),
+            "optimizer_kind": type(state.optimizer).__name__,
             "ema": state.ema,
             "generator": state.generator.get_state(),
         }
@@ -134,6 +138,10 @@ class CheckpointManager:
         raw = self.load(step)
         state.model.load_state_dict(raw["model"], strict=True)
         opt = state.optimizer
+        kind = raw.get("optimizer_kind", "SGD")  # older saves: SGD only
+        if kind != type(opt).__name__:
+            raise ValueError(f"checkpoint holds {kind} state; this run's "
+                             f"optimizer is {type(opt).__name__}")
         hyper = [{k: v for k, v in g.items() if k != "params"}
                  for g in opt.param_groups]
         opt.load_state_dict(raw["optimizer"])
@@ -141,8 +149,7 @@ class CheckpointManager:
             group.update(h)
         if state.ema is not None:
             if raw["ema"] is None:
-                state.ema = {k: p.detach().clone()
-                             for k, p in state.model.named_parameters()}
+                state.ema = ema_of(state.model)
             else:
                 if set(raw["ema"]) != set(state.ema):
                     raise ValueError("checkpoint EMA keys differ from the "

@@ -1174,3 +1174,208 @@ def test_gpu_server_answers_from_handler_threads(rng):
     finally:
         httpd.shutdown()
         svc.close()
+
+
+# --- the training settings (train_multiscale_fused and the rest) -----------------
+
+def _settings_cfg(*overrides):
+    return _tiny_train_cfg("data.multiscale=true", "model.dtype=float32",
+                           "data.hflip_prob=0.5", *overrides)
+
+
+def _one_step(cfg, device, dtype=torch.float32):
+    """One train step's gradients of ``cfg`` on ``device`` in ``dtype``
+    from seeded weights, on a seeded batch of circles (4 images a
+    micro-batch): (loss, {param: float64 grad on the CPU}, launch
+    counts)."""
+    from basi_tpu_torch.kernels import launch_counters
+    from basi_tpu_torch.models.basi import create_model
+    from basi_tpu_torch.train.state import create_train_state
+    from basi_tpu_torch.train.step import accumulate_grads
+
+    rng = np.random.RandomState(0)
+    n, size, m = 4 * cfg.train.grad_accum, cfg.data.image_size, 4
+    yy, xx = np.mgrid[0:size, 0:size]
+    masks = np.zeros((n, m, size, size), np.uint8)
+    for i in range(n):
+        for j in range(m):
+            cy, cx = rng.randint(8, size - 8, size=2)
+            masks[i, j] = (yy - cy) ** 2 + (xx - cx) ** 2 <= rng.randint(
+                4, size // 4) ** 2
+    batch = {"image": torch.from_numpy(
+                 (rng.rand(n, size, size, 3) * 255).astype(np.uint8)),
+             "masks": torch.from_numpy(masks),
+             "valid": torch.ones((n, m), dtype=torch.uint8)}
+    model = create_model(cfg.model, device, torch.Generator().manual_seed(0),
+                         train=True).to(dtype)
+    state = create_train_state(model, cfg.train)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    metrics = accumulate_grads(state, {k: v.to(device)
+                                       for k, v in batch.items()},
+                               cfg.train, cfg.data, dtype)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    grads = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+    return float(metrics["loss"]), grads, counts
+
+
+def _apart(g, ref):
+    flat = torch.cat([(g[k] - ref[k]).flatten() for k in ref])
+    return float(flat.abs().max()), float(flat.norm())
+
+
+@pytest.mark.gpu
+def test_gpu_random_augment_ignores_tf32(rng):
+    """The scale jitter at the preset's shape for 4 images (8 masks, 512^2)
+    on the card: the same bits with TF32 allowed as without (the wrapper
+    turns it off around its matmuls), images within 1e-5 of the CPU's and
+    masks equal to the CPU's wherever the CPU's value before the threshold
+    lies more than 1e-5 from 0.5."""
+    from basi_tpu_torch.data.transforms import (
+        dynamic_interp_matrix,
+        random_augment,
+    )
+
+    dev = _cuda()
+    n, m, hw = 4, 8, 512
+    imgs = torch.from_numpy(rng.randn(n, hw, hw, 3).astype(np.float32))
+    masks = torch.from_numpy((rng.rand(n, m, hw // 16, hw // 16) > 0.6)
+                             .astype(np.float32)).repeat_interleave(
+        16, 2).repeat_interleave(16, 3)
+    draws = [torch.tensor([0.75, 1.25, 0.9, 1.1]),
+             torch.from_numpy(rng.rand(n).astype(np.float32)),
+             torch.from_numpy(rng.rand(n).astype(np.float32))]
+    out = {}
+    for tf32 in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            out[tf32] = [t.cpu() for t in random_augment(
+                imgs.to(dev), masks.to(dev), *draws)]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b in zip(out[True], out[False]):
+        assert torch.equal(a, b)
+    ci, cm = random_augment(imgs, masks, *draws)
+    torch.testing.assert_close(out[False][0], ci, atol=1e-5, rtol=0)
+    # the CPU's resampled masks before the threshold
+    r = 1.0 / draws[0]
+    wy = dynamic_interp_matrix(hw, hw, r, draws[1] * (hw - r * hw))
+    wx = dynamic_interp_matrix(hw, hw, r, draws[2] * (hw - r * hw))
+    pre = torch.matmul(torch.matmul(wy[:, None], masks),
+                       wx[:, None].transpose(-1, -2))
+    clear = (pre - 0.5).abs() > 1e-5
+    assert torch.equal(out[False][1][clear], cm[clear])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overrides", [
+    (), ("data.color_jitter=0.2,0.2,0.2",), ("train.grad_accum=2",)])
+def test_gpu_multiscale_step_matches_cpu(overrides):
+    """The multiscale f32 step on the card against the same step on the
+    CPU, the same draws, and float64 on the CPU as the reference: loss within 1e-4 relative of the CPU's f32 loss; the card's
+    gradients no further from float64 than twice the CPU's f32 gradients
+    are, by the largest difference and in norm (plus 1e-6 of the
+    reference's: zoomed-out scenes leave near-constant BatchNorm channels
+    in the tiny trunk, where f32 gradients part from float64 by up to
+    3.5e-2 on the CPU too); one ``normalize_and_flip`` a micro-batch."""
+    dev = _cuda()
+    cfg = _settings_cfg(*overrides)
+    loss_d, g_d, n_d = _one_step(cfg, dev)
+    loss_c, g_c, _ = _one_step(cfg, "cpu")
+    _, ref, _ = _one_step(cfg, "cpu", torch.float64)
+    assert n_d["normalize_and_flip"] == cfg.train.grad_accum
+    assert abs(loss_d - loss_c) <= 1e-4 * abs(loss_c)
+    rmax = max(float(r.abs().max()) for r in ref.values())
+    rnorm = float(torch.cat([r.flatten() for r in ref.values()]).norm())
+    (dm, dn), (cm, cn) = _apart(g_d, ref), _apart(g_c, ref)
+    assert dm <= 2 * cm + 1e-6 * rmax, (dm, cm)
+    assert dn <= 2 * cn + 1e-6 * rnorm, (dn, cn)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overrides,per_step", [
+    (("train.freeze_bn=true",), (0, 0)),
+    (("train.remat=true",), (2, 1)),
+    (("train.freeze_bn=true", "train.remat=true"), (0, 0)),
+    ((), (1, 1)),
+])
+def test_gpu_bn_kernel_launches_under_freeze_bn_and_remat(overrides,
+                                                          per_step):
+    """Under ``model.bn_impl=fused`` a step launches ``channel_moments`` and
+    ``channel_dual_sums`` once a BatchNorm each (17 in the tiny trunk); a
+    frozen trunk launches neither; remat's recompute launches the forward's
+    moments again (twice a BatchNorm) and the backward's sums once."""
+    from basi_tpu_torch.models.basi import create_model
+    from basi_tpu_torch.models.layers import BatchNorm2d
+
+    dev = _cuda()
+    cfg = _settings_cfg("model.bn_impl=fused", *overrides)
+    _, _, counts = _one_step(cfg, dev)
+    bns = sum(isinstance(m, BatchNorm2d)
+              for m in create_model(cfg.model, "cpu").modules())
+    assert (counts["channel_moments"], counts["channel_dual_sums"]) == (
+        per_step[0] * bns, per_step[1] * bns), counts
+    assert counts["normalize_and_flip"] == 1
+    assert counts["upsample_int"] == counts["upsample_int_bwd"] == 0  # f32
+
+
+@pytest.mark.gpu
+def test_gpu_remat_moves_the_running_stats_as_the_plain_step():
+    """One step with and without ``train.remat`` on the card (fused BN):
+    the running statistics within 1e-6 of each other (cuDNN may pick
+    another algorithm for the recompute) and the gradients within 1e-4."""
+    from basi_tpu_torch.train.loop import Trainer
+    from basi_tpu_torch.train.step import accumulate_grads
+
+    dev = _cuda()
+    out = []
+    for remat in ("false", "true"):
+        cfg = _settings_cfg("model.bn_impl=fused", f"train.remat={remat}")
+        tr = Trainer(cfg, device=dev)
+        feed = tr.feed.epoch(0)
+        batch = next(feed)
+        feed.close()
+        accumulate_grads(tr.state, batch, cfg.train, cfg.data, tr.dtype)
+        out.append(({k: b.cpu() for k, b in tr.state.model.named_buffers()},
+                    {k: p.grad.cpu() for k, p in
+                     tr.state.model.named_parameters()}))
+    (s0, g0), (s1, g1) = out
+    for k in s0:
+        torch.testing.assert_close(s1[k], s0[k], atol=1e-6, rtol=1e-6)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_adamw_resume_is_bit_for_bit(tmp_path):
+    """Two AdamW steps on the card, checkpointed, resumed by a new Trainer:
+    params, both moments and the count bit-equal; the third step from each
+    gives bit-equal params where the backward is deterministic (cuDNN is
+    asked to be), and the loss of the third step equal."""
+    from basi_tpu_torch.train.loop import Trainer
+
+    dev = _cuda()
+    torch.backends.cudnn.deterministic = True
+    try:
+        over = ("train.optimizer=adamw", f"train.checkpoint_dir={tmp_path}",
+                "train.checkpoint_every_steps=2", "data.synthetic_n=16")
+        a = Trainer(_settings_cfg(*over, "train.resume=none"), device=dev)
+        a.train(max_steps=2)
+        b = Trainer(_settings_cfg(*over, "train.resume=auto"), device=dev)
+        assert b.state.step == 2
+        for p, q in zip(a.state.model.parameters(),
+                        b.state.model.parameters()):
+            assert torch.equal(p, q)
+            sa, sb = a.state.optimizer.state[p], b.state.optimizer.state[q]
+            for k in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(sa[k], sb[k]), k
+                assert sa[k].device == sb[k].device
+        la = a.train(max_steps=3)["loss"]
+        lb = b.train(max_steps=3)["loss"]
+        assert la == lb
+        for p, q in zip(a.state.model.parameters(),
+                        b.state.model.parameters()):
+            assert torch.equal(p, q)
+    finally:
+        torch.backends.cudnn.deterministic = False

@@ -45,7 +45,7 @@ from basi_tpu_torch.convert import (
     to_jax_variables,
 )
 from basi_tpu_torch.data import transforms as T
-from basi_tpu_torch.models.basi import BASIOutputs, create_model
+from basi_tpu_torch.models.basi import BASIOutputs, cast_params, create_model
 from basi_tpu_torch.ops import losses as L
 from basi_tpu_torch.ops.resize import maxpool_hw
 from basi_tpu_torch.train import loss as TL
@@ -213,7 +213,9 @@ def test_basi_loss_matches_jax(gt, rng):
     for k in outs:
         np.testing.assert_allclose(to[k].grad.numpy(), np.asarray(want_g[k]),
                                    atol=1e-5, rtol=0, err_msg=k)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the dense path reads the model's candidate masks, which these
+    # outputs do not carry
+    with pytest.raises(ValueError, match="with_candidates"):
         TL.basi_loss(out, _t(small), _t(valid), max_pos_cells=0)
 
 
@@ -294,8 +296,11 @@ def _run_steps(cfg, dtype: str, monkeypatch, n_steps: int = 2,
         cfg.model, dtype=dtype, param_dtype=param_dtype))
     rng = np.random.RandomState(7)
     batches = [tiny_batch(rng, n=4) for _ in range(n_steps)]
-    model = create_model(cfg.model, "cpu", train=True).to(
-        _TORCH_DTYPES[param_dtype])
+    model = create_model(cfg.model, "cpu", train=True)
+    if param_dtype == "bfloat16":  # params only: BN statistics stay f32
+        model = cast_params(model, torch.bfloat16)
+    else:
+        model = model.to(_TORCH_DTYPES[param_dtype])
     names = [k for k, _ in model.named_parameters()]
     tgrads: list = []
     real_clip = TSTEP.clip_by_global_norm
@@ -309,9 +314,17 @@ def _run_steps(cfg, dtype: str, monkeypatch, n_steps: int = 2,
                                  TS.make_schedule(cfg.train, MAX_STEPS), tdtype)
     with jax.enable_x64(dtype == "float64"):
         jmodel = jax_create_model(cfg.model)
+        if cfg.train.remat:  # as the JAX Trainer builds it
+            jmodel = jmodel.clone(remat=True)
         tx, _ = jax_make_optimizer(cfg.train, MAX_STEPS)
         jstate = jax_create_state(jmodel, cfg.model, cfg.train, MAX_STEPS,
                                   tx=tx)
+        if dtype == "float64":
+            # flax makes the BN statistics f32 and the first f64 update
+            # widens them (values unchanged): start them f64, so that
+            # grad_accum's scan carries one dtype
+            jstate = jstate.replace(batch_stats=jax.tree.map(
+                lambda a: a.astype(jnp.float64), jstate.batch_stats))
         jgrads: list = []
         jstep = jax_make_train_step(jmodel, _capturing(tx, jgrads), cfg.train,
                                     cfg.data, donate=False)
@@ -501,14 +514,8 @@ def test_trainer_runs_three_steps_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("overrides", [
-    ["data.multiscale=true"],
-    ["data.color_jitter=0.2,0.2,0.2"],
-    ["train.grad_accum=2"],
     ["train.steps_per_dispatch=2"],
-    ["train.freeze_bn=true"],
     ["model.refine=true"],
-    ["train.optimizer=adamw"],
-    ["train.remat=true"],
     ["train.checkpoint_dir=ckpt", "train.async_checkpoint=true"],
     ["parallel.num_devices=2"],
     ["model.instance_mechanism=roi"],

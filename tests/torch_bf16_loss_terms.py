@@ -8,7 +8,14 @@ by term, and each loss term of both on JAX's own bf16 outputs.
    against itself: the gap of every metric.
 2. On three batches, JAX's bf16 train-mode outputs fed to both losses:
    the relative difference of each term, beside JAX's own bf16 - f32 gap.
-Runs on the CPU (JAX and torch both), a minute or two.
+3. Over ``GAP_BATCHES`` seeded batches (``helpers.tiny_batch``, seeds 0
+   to 31), the train-mode forward and loss of the same weights
+   (``test_torch_model.jax_variables``) in bf16 compute on f32 params and
+   in f32, in each framework: the mean, mean |gap| and spread (standard
+   deviation) of the bf16 - f32 loss gap of each, the standard error of
+   JAX's mean |gap|, and per model output the mean relative distance of
+   each framework's bf16 output from its own f32 output.
+Runs on the CPU (JAX and torch both), a few minutes.
 """
 
 import os
@@ -99,6 +106,88 @@ def same_outputs() -> None:
             print(f"  {k:14s} {rel:9.2e} {j16[k] - j32[k]:11.3e}")
 
 
+GAP_BATCHES = 32
+OUTPUTS = ("saliency_logits", "cell_scores", "cell_kernels", "mask_feats")
+
+
+def gap_over_batches(n_batches: int = GAP_BATCHES) -> dict:
+    """Part 3: {framework: (loss gaps, {output: relative distances})}."""
+    from basi_tpu_torch.convert import load_jax_variables
+    from basi_tpu_torch.models.basi import create_model
+
+    cfg = tiny_config(batch_size=4)
+    params, stats = jax_variables(cfg)
+    mean = np.asarray(cfg.data.mean, np.float32)
+    std = np.asarray(cfg.data.std, np.float32)
+    jfns = {}
+    for dt in ("float32", "bfloat16"):
+        model = jax_create_model(cfg.model).clone(dtype=jnp.dtype(dt))
+
+        def fwd(x, masks, valid, model=model):
+            out, _ = model.apply({"params": params, "batch_stats": stats}, x,
+                                 train=True, with_candidates=False,
+                                 mutable=["batch_stats"])
+            small = jax_maxpool(masks, 4, 4).astype(jnp.float32)
+            loss, _ = jax_basi_loss(
+                out, small, valid, gt_stats=jax.vmap(jax_stats)(masks, valid),
+                max_pos_cells=cfg.train.max_pos_cells)
+            return loss, {k: getattr(out, k).astype(jnp.float32)
+                          for k in OUTPUTS}
+
+        jfns[dt] = jax.jit(fwd)
+    tmodel = create_model(cfg.model, "cpu", train=True)
+    load_jax_variables(tmodel, params, stats)
+    res = {"JAX": ([], {k: [] for k in OUTPUTS}),
+           "port": ([], {k: [] for k in OUTPUTS})}
+    for seed in range(n_batches):
+        b = tiny_batch(np.random.RandomState(seed), n=4)
+        x = (b["image"].astype(np.float32) / 255.0 - mean) / std
+        masks, valid = jnp.asarray(b["masks"]), jnp.asarray(b["valid"])
+        jl = {dt: jfns[dt](jnp.asarray(x, jnp.dtype(dt)), masks, valid)
+              for dt in jfns}
+        tm, tv = torch.from_numpy(b["masks"]), torch.from_numpy(b["valid"])
+        tl = {}
+        for dt, tdt in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+            sd = {k: v.clone() for k, v in tmodel.state_dict().items()}
+            with torch.no_grad():
+                out = tmodel(torch.from_numpy(x).to(tdt), train=True)
+                loss, _ = basi_loss(out, maxpool_hw(tm, 4, 4).float(), tv,
+                                    gt_stats=instance_stats(tm, tv),
+                                    max_pos_cells=cfg.train.max_pos_cells)
+            tmodel.load_state_dict(sd)  # train mode moved the statistics
+            tl[dt] = (float(loss), {k: getattr(out, k).float().numpy()
+                                    for k in OUTPUTS})
+        for name, got in (("JAX", {dt: (float(v[0]), {
+                k: np.asarray(a) for k, a in v[1].items()})
+                for dt, v in jl.items()}), ("port", tl)):
+            gaps, dist = res[name]
+            gaps.append(got["bfloat16"][0] - got["float32"][0])
+            for k in OUTPUTS:
+                a, r = got["bfloat16"][1][k], got["float32"][1][k]
+                dist[k].append(np.abs(a - r).mean() / np.abs(r).mean())
+    return res
+
+
+def print_gaps(res: dict) -> None:
+    n = len(res["JAX"][0])
+    print(f"bf16 - f32 loss gap over {n} batches (tiny model, bf16 compute "
+          "on f32 params):  framework  mean  mean|gap|  spread (std)")
+    for name, (gaps, _) in res.items():
+        g = np.asarray(gaps)
+        print(f"  {name:5s} {g.mean():11.3e} {np.abs(g).mean():11.3e} "
+              f"{g.std(ddof=1):11.3e}")
+    ja = np.abs(np.asarray(res["JAX"][0]))
+    print(f"  standard error of JAX's mean |gap|: "
+          f"{ja.std(ddof=1) / np.sqrt(n):.3e}")
+    print("mean relative distance of each bf16 output from its own f32 "
+          "output:  output  JAX  port")
+    for k in OUTPUTS:
+        print(f"  {k:16s} {np.mean(res['JAX'][1][k]):9.3e} "
+              f"{np.mean(res['port'][1][k]):9.3e}")
+
+
 if __name__ == "__main__":
     step_gaps()
     same_outputs()
+    print_gaps(gap_over_batches())
