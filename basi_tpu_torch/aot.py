@@ -3,7 +3,8 @@ counterpart of ``basi_tpu/convert/aot.py``).
 
 A model exports to ONE file: the whole inference program (the ingest
 normalize, the backbone, FPN and heads, the instance selection and mask
-NMS) as a saved ``torch.export`` program, with the weights pre-cast to
+NMS; for the roi mechanism the proposals, the ROI mask head and the paste
+onto /4 canvases before it) as a saved ``torch.export`` program, with the weights pre-cast to
 ``infer.dtype`` and stored in it. Contract of the exported function (that
 of ``Inferencer.predict_batch``):
 
@@ -65,9 +66,10 @@ def export_serving(cfg, *, params=None, batch_stats=None, state_dict=None,
 
     Weights as for ``Inferencer`` (JAX trees, a state dict, or a
     ``checkpoint``), cast to ``infer.dtype``. ``device``: where the
-    program is traced and will run (``cuda`` or ``cpu``). Settings the
-    port has no model for (the connected and roi mechanisms) raise
-    ``NotImplementedError``."""
+    program is traced and will run (``cuda`` or ``cpu``). The kernels and
+    roi mechanisms export (the roi program holds the top-k proposals and
+    the ROI paste); settings the port has no model for (the connected
+    mechanism) raise ``NotImplementedError``."""
     from basi_tpu_torch.infer import Inferencer
 
     inf = Inferencer(cfg, device=device, params=params,

@@ -4,8 +4,11 @@ JAX -> port: ``export_basinet`` maps the flax ``params``/``batch_stats``
 trees to torch names and layouts (conv HWIO -> OIHW, norm scale/bias ->
 weight/bias, BN mean/var -> running_mean/running_var, a zero
 ``num_batches_tracked``); the state dict then loads with ``strict=True``,
-so a missing or extra key raises. A checkpoint of the roi mechanism has no
-``instance`` head and is refused. ``load_jax_train_state`` starts training
+so a missing or extra key raises. A checkpoint of the roi mechanism holds
+``roi_box`` and ``roi_mask`` heads where the kernels mechanism's holds
+``instance``, and maps to the port's heads of those names (the JAX
+package's ``export_basinet`` refuses it; this one is the port's own).
+``load_jax_train_state`` starts training
 from such variables as the JAX package's ``create_train_state`` does: empty
 momentum, EMA at the params.
 
@@ -16,8 +19,9 @@ mapping.
 
 Both mappings are numpy only and are the port's own copies of the JAX
 package's ``convert/torch_export.py`` and ``convert/full_import.py`` for
-ResNet trunks and the heads of ``models.basi.BASINet`` (tests hold them
-bitwise equal); VGG trunks and the refinement module are not ported.
+ResNet trunks and the kernels mechanism's heads of ``models.basi.BASINet``
+(tests hold them bitwise equal), grown here by the roi heads; VGG trunks
+and the refinement module are not ported.
 """
 
 from __future__ import annotations
@@ -51,8 +55,12 @@ def _put_norm(out: dict, tname: str, entry: dict, stats: dict | None = None):
 
 
 # Head depths of ``models.basi.BASINet``: FPN, saliency and mask-feature
-# levels, instance tower convs.
-FPN_LEVELS, SALIENCY_LEVELS, MASKFEAT_LEVELS, INSTANCE_DEPTH = 4, 4, 4, 3
+# levels.
+FPN_LEVELS, SALIENCY_LEVELS, MASKFEAT_LEVELS = 4, 4, 4
+# each mechanism's instance heads: name -> (tower convs, prediction convs)
+INSTANCE_HEADS = {"kernels": {"instance": (3, ("score", "kernel"))},
+                  "roi": {"roi_box": (3, ("score", "box")),
+                          "roi_mask": (2, ("out",))}}
 
 
 def _check_backbone(backbone: str) -> None:
@@ -98,12 +106,10 @@ def export_basinet(params: dict, batch_stats: dict,
                    stage_sizes=(3, 4, 6, 3),
                    backbone: str = "resnet50") -> dict:
     """Full BASINet variables -> torch state dict (numpy arrays), the exact
-    inverse of ``import_basinet``."""
-    if "instance" not in params:
-        raise ValueError(
-            "torch export maps the kernels mechanism's module names; this "
-            "checkpoint has no 'instance' head (model.instance_mechanism="
-            "'roi' has no counterpart in the port)")
+    inverse of ``import_basinet``. The instance heads are the kernels
+    mechanism's ``instance`` or the roi mechanism's ``roi_box`` and
+    ``roi_mask``; a tree with neither raises ValueError."""
+    heads = ["maskfeat"] + list(INSTANCE_HEADS[_mechanism(params)])
     _check_backbone(backbone)
     _check_no_refine("refine" in params)
     out: dict = {}
@@ -114,13 +120,24 @@ def export_basinet(params: dict, batch_stats: dict,
         _put_conv(out, f"fpn.{name}", entry)
     for name, entry in params["saliency"].items():  # tower{i} / out{i} / fuse
         _put_conv(out, f"saliency.{name}", entry)
-    for head in ("maskfeat", "instance"):  # level|tower{i} / gn{i} / ...
+    for head in heads:  # level|tower{i} / gn{i} / ...
         for name, entry in params[head].items():
             if name.startswith("gn"):
                 _put_norm(out, f"{head}.{name}", entry)
             else:
                 _put_conv(out, f"{head}.{name}", entry)
     return out
+
+
+def _mechanism(params) -> str:
+    """The instance mechanism whose heads a params tree (or a set of head
+    names) holds."""
+    for mech, heads in INSTANCE_HEADS.items():
+        if all(h in params for h in heads):
+            return mech
+    raise ValueError("the checkpoint holds no instance head: neither the "
+                     "kernels mechanism's 'instance' nor the roi "
+                     "mechanism's 'roi_box' and 'roi_mask'")
 
 
 # --- torch state dict -> JAX trees -----------------------------------------
@@ -213,13 +230,15 @@ def import_basinet(state_dict: Mapping[str, np.ndarray],
         mf[f"gn{i}"] = _gn_entry(sd, f"maskfeat.gn{i}")
     mf["embed"] = _conv_entry(sd, "maskfeat.embed")
     params["maskfeat"] = mf
-    inst = {}
-    for i in range(INSTANCE_DEPTH):
-        inst[f"tower{i}"] = _conv_entry(sd, f"instance.tower{i}")
-        inst[f"gn{i}"] = _gn_entry(sd, f"instance.gn{i}")
-    inst["score"] = _conv_entry(sd, "instance.score")
-    inst["kernel"] = _conv_entry(sd, "instance.kernel")
-    params["instance"] = inst
+    mech = _mechanism({k.split(".")[0] for k in sd})
+    for head, (depth, preds) in INSTANCE_HEADS[mech].items():
+        entry = {}
+        for i in range(depth):
+            entry[f"tower{i}"] = _conv_entry(sd, f"{head}.tower{i}")
+            entry[f"gn{i}"] = _gn_entry(sd, f"{head}.gn{i}")
+        for name in preds:
+            entry[name] = _conv_entry(sd, f"{head}.{name}")
+        params[head] = entry
     return params, stats
 
 

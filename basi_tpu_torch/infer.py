@@ -1,12 +1,13 @@
-"""Inference and evaluation runner, kernels mechanism (port of
-``basi_tpu/infer.py``).
+"""Inference and evaluation runner (port of ``basi_tpu/infer.py``), for
+the kernels and roi mechanisms.
 
-uint8 NHWC batch -> normalize -> BASINet -> top-k kernel selection, Matrix
-NMS and slot packing at /4 -> (on request) the ``upsample_sigmoid`` kernel
-to full resolution. ``evaluate`` runs the eval program per batch on the
-device (full-resolution matching IoU, the saliency suite on the letterbox
-content region, GT areas), or with ``infer.ap_at_original`` the same
-metrics after pasting predictions and the saliency map back into each
+uint8 NHWC batch -> normalize -> BASINet -> the mechanism's candidates (the
+top-k cells' kernels applied, or the ROI masks pasted onto /4 canvases),
+Matrix NMS and slot packing at /4 -> (on request) the ``upsample_sigmoid``
+kernel to full resolution. ``evaluate`` runs the eval program per batch on
+the device (full-resolution matching IoU, the saliency suite on the
+letterbox content region, GT areas), or with ``infer.ap_at_original`` the
+same metrics after pasting predictions and the saliency map back into each
 image's original frame, against native-resolution GT; the host accumulates
 mask AP/AR and the saliency means, and on request writes each image's
 predicted instances as a labeled PNG at its original size
@@ -17,9 +18,8 @@ model, the selection, the upsample, the paste back to each original size,
 then a PNG per image and the COCO results. Weights come from JAX
 ``params``/``batch_stats`` trees (through ``export_basinet``), a torch
 state dict, a Trainer checkpoint or state dict file, or a seeded random
-init. It runs on the card unless
-``device`` names another. Settings outside the port raise
-``NotImplementedError``.
+init. It runs on the card unless ``device`` names another. Settings outside
+the port raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,8 +60,12 @@ from basi_tpu_torch.evals.saliency import (
 )
 from basi_tpu_torch.kernels.upsample_sigmoid import upsample_sigmoid
 from basi_tpu_torch.models.basi import BASIOutputs, create_model
-from basi_tpu_torch.ops.nms import select_instances_from_kernels
+from basi_tpu_torch.ops.nms import (
+    select_instances_from_kernels,
+    select_instances_from_probs,
+)
 from basi_tpu_torch.ops.paste import paste_masks_batch
+from basi_tpu_torch.ops.roi import paste_rois
 from basi_tpu_torch.ops.resize import resize_bilinear
 from basi_tpu_torch.utils.checkpoint import (
     CheckpointManager,
@@ -247,19 +251,28 @@ class Inferencer:
         return self.model(x)
 
     def _select(self, out: BASIOutputs) -> tuple[torch.Tensor, torch.Tensor]:
-        n, s1, s2, e = out.cell_kernels.shape
+        """The slots of a batch: the kernels mechanism applies its top-k
+        cells' kernels; the roi mechanism pastes the sigmoid of its ROI
+        masks (in the compute dtype) onto /4 canvases and scores them by
+        the sigmoid of their proposals' logits. Then the same rescoring,
+        NMS and slot packing."""
         icfg = self.cfg.infer
+        kw = dict(num_slots=self.cfg.model.num_slots,
+                  score_threshold=icfg.score_threshold,
+                  mask_threshold=icfg.mask_threshold, nms=icfg.nms,
+                  nms_sigma=icfg.nms_sigma,
+                  nms_iou_threshold=icfg.nms_iou_threshold)
+        if out.roi_mask_logits is not None:
+            probs = torch.sigmoid(out.roi_mask_logits.float()).to(self.dtype)
+            canvases = paste_rois(probs, out.roi_boxes,
+                                  tuple(out.mask_feats.shape[1:3]))
+            return select_instances_from_probs(
+                canvases, torch.sigmoid(out.roi_scores.float()), **kw)
+        n, s1, s2, e = out.cell_kernels.shape
         return select_instances_from_kernels(
             out.mask_feats, out.cell_kernels.reshape(n, s1 * s2, e),
             out.cell_scores.reshape(n, s1 * s2),
-            num_slots=self.cfg.model.num_slots,
-            score_threshold=icfg.score_threshold,
-            mask_threshold=icfg.mask_threshold,
-            nms=icfg.nms,
-            nms_sigma=icfg.nms_sigma,
-            nms_iou_threshold=icfg.nms_iou_threshold,
-            pre_top_k=icfg.pre_nms_top_k,
-        )
+            pre_top_k=icfg.pre_nms_top_k, **kw)
 
     @torch.inference_mode()
     def predict_batch(self, images_u8

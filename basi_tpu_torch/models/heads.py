@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from basi_tpu_torch.models.layers import Conv2d, GroupNorm
 from basi_tpu_torch.ops.resize import resize_nchw
+from basi_tpu_torch.ops.roi import roi_align
 
 GN_GROUPS = 32
 GN_EPS = 1e-5
@@ -90,20 +91,22 @@ class MaskFeatureHead(nn.Module):
         return self.embed(acc)
 
 
-class InstanceKernelHead(nn.Module):
-    """Cell-grid instance head: P3 + CoordConv resized to the S x S grid, a
-    3-deep conv/GN/ReLU tower, then per-cell objectness logits (N, 1, S, S)
-    and dynamic mask kernels (N, E, S, S)."""
+class _GridHead(nn.Module):
+    """A cell-grid head: P3 + CoordConv resized to the S x S grid, a
+    ``depth``-deep conv/GN/ReLU tower, then two 3x3 prediction convs, the
+    objectness logits ``score`` (N, 1, S, S) and a second one named
+    ``second`` with ``second_ch`` channels (N, second_ch, S, S)."""
 
-    def __init__(self, ch_in: int = 256, ch: int = 128, embed: int = 64,
-                 grid: int = 16, depth: int = 3):
+    def __init__(self, ch_in: int, ch: int, second: str, second_ch: int,
+                 grid: int, depth: int):
         super().__init__()
         for i in range(depth):
             cin = (ch_in + 2) if i == 0 else ch
             setattr(self, f"tower{i}", Conv2d(cin, ch, 3, padding=1))
             setattr(self, f"gn{i}", GroupNorm(GN_GROUPS, ch, eps=GN_EPS))
         self.score = Conv2d(ch, 1, 3, padding=1)
-        self.kernel = Conv2d(ch, embed, 3, padding=1)
+        setattr(self, second, Conv2d(ch, second_ch, 3, padding=1))
+        self.second = second
         self.grid = grid
         self.depth = depth
 
@@ -111,4 +114,54 @@ class InstanceKernelHead(nn.Module):
         x = resize_nchw(_cat_coords(feat), (self.grid, self.grid))
         for i in range(self.depth):
             x = F.relu(getattr(self, f"gn{i}")(getattr(self, f"tower{i}")(x)))
-        return self.score(x), self.kernel(x)
+        return self.score(x), getattr(self, self.second)(x)
+
+
+class InstanceKernelHead(_GridHead):
+    """The kernels mechanism's cell-grid head: per-cell objectness logits
+    (N, 1, S, S) and dynamic mask kernels (N, E, S, S)."""
+
+    def __init__(self, ch_in: int = 256, ch: int = 128, embed: int = 64,
+                 grid: int = 16, depth: int = 3):
+        super().__init__(ch_in, ch, "kernel", embed, grid, depth)
+
+
+class RoiBoxHead(_GridHead):
+    """The roi mechanism's proposal head: the same grid and tower as
+    ``InstanceKernelHead``, with per-cell objectness logits (N, 1, S, S)
+    and unconstrained (l, t, r, b) box-distance logits (N, 4, S, S), for
+    ``ops.roi.decode_cell_boxes``. The grid is the proposal set."""
+
+    def __init__(self, ch_in: int = 256, ch: int = 128, grid: int = 16,
+                 depth: int = 3):
+        super().__init__(ch_in, ch, "box", 4, grid, depth)
+
+
+class RoiMaskHead(nn.Module):
+    """Per-ROI mask FCN: the boxes crop the (N, H/4, W/4, E) mask features
+    to R x R (``ops.roi.roi_align``, boxes detached: box geometry has its
+    own loss), then a ``depth``-deep conv/GN/ReLU tower and a 1x1 ``out``
+    give one mask logit map per ROI in the ROI frame."""
+
+    def __init__(self, ch_in: int = 64, ch: int = 64, resolution: int = 28,
+                 depth: int = 2):
+        super().__init__()
+        for i in range(depth):
+            setattr(self, f"tower{i}",
+                    Conv2d(ch_in if i == 0 else ch, ch, 3, padding=1))
+            setattr(self, f"gn{i}", GroupNorm(GN_GROUPS, ch, eps=GN_EPS))
+        self.out = Conv2d(ch, 1, 1)
+        self.resolution = resolution
+        self.depth = depth
+
+    def forward(self, mask_feats: torch.Tensor,
+                boxes: torch.Tensor) -> torch.Tensor:
+        """mask_feats (N, H, W, E) NHWC; boxes (N, K, 4) normalized
+        (y0, x0, y1, x1). Returns (N, K, R, R) mask logits."""
+        n, k, _ = boxes.shape
+        r = self.resolution
+        crops = roi_align(mask_feats, boxes.detach(), r)  # (N, K, R, R, E)
+        x = crops.reshape(n * k, r, r, -1).permute(0, 3, 1, 2)
+        for i in range(self.depth):
+            x = F.relu(getattr(self, f"gn{i}")(getattr(self, f"tower{i}")(x)))
+        return self.out(x).reshape(n, k, r, r)

@@ -101,6 +101,27 @@ def select_instances_from_kernels(
         mask_threshold, nms, nms_sigma, nms_iou_threshold)
 
 
+def select_instances_from_probs(
+    mask_probs: torch.Tensor,
+    obj_scores: torch.Tensor,
+    num_slots: int = 20,
+    score_threshold: float = 0.1,
+    mask_threshold: float = 0.5,
+    nms: str = "matrix",
+    nms_sigma: float = 2.0,
+    nms_iou_threshold: float = 0.5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selection for mechanisms that hold each candidate's probability
+    mask in the model frame already (the roi mechanism pastes its
+    ROI-frame masks to /4 first): mask_probs (N, C, H, W) probabilities,
+    obj_scores (N, C) probabilities. Quality rescoring, NMS and slot
+    packing; returns the slot contract of
+    ``select_instances_from_kernels``."""
+    return _select_from_probs(
+        mask_probs, obj_scores.float(), num_slots, score_threshold,
+        mask_threshold, nms, nms_sigma, nms_iou_threshold)
+
+
 def _select_from_probs(top_probs, obj_scores, num_slots, score_threshold,
                        mask_threshold, nms, nms_sigma, nms_iou_threshold):
     """Quality rescoring + NMS + slot packing. top_probs (N, K, H, W) in

@@ -1,8 +1,9 @@
 """Converged-accuracy run of the port (port of ``tools/bench_accuracy.py``,
-kernels mechanism).
+kernels and roi mechanisms).
 
     python -m basi_tpu_torch.tools.bench_accuracy --out PATH \\
-        [--epochs N] [--synthetic-n N] [--seed S] [--ckpt-root DIR]
+        [--epochs N] [--synthetic-n N] [--seed S] [--ckpt-root DIR] \\
+        [--mechanisms kernels,roi]
 
 Runs the ``bench_accuracy`` preset (1,024 synthetic scenes with non-square
 originals, 24 epochs, SGD + cosine + EMA, bf16 batch 16) as the JAX tool
@@ -10,10 +11,12 @@ does: packs the train and val splits into shards under
 ``<ckpt-root>/shards`` (once), trains from them with a checkpoint each
 epoch and the per-epoch eval on the val shards, then loads the checkpoint
 (EMA weights preferred) and evaluates at the original resolution on the
-raw synthetic val split. Writes the JAX tool's JSON keys to ``--out``. The
-roi and connected mechanisms are not ported and raise. ``--out`` is
-required and may not name one of the repo's ``bench_accuracy*.json``,
-which are the JAX package's records. Runs on the card.
+raw synthetic val split. Writes the JAX tool's JSON keys to ``--out``.
+``--mechanisms kernels,roi`` trains and evaluates each and names the one
+of the highest mAP the flagship. The connected mechanism is not ported
+and raises. ``--out`` is required and may not name one of the repo's
+``bench_accuracy*.json``, which are the JAX package's records. Runs on
+the card.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from basi_tpu_torch.device import DEFAULT_DEVICE
 from basi_tpu_torch.infer import Inferencer
 from basi_tpu_torch.train.loop import Trainer
 
-PORTED = ("kernels",)
-NOT_PORTED = ("roi", "connected")
+PORTED = ("kernels", "roi")
+NOT_PORTED = ("connected",)
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
 
 
@@ -103,7 +106,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="train.seed (init, batch order, flips)")
     ap.add_argument("--mechanisms", default="kernels",
-                    help="comma list of mechanisms; only kernels is ported")
+                    help="comma list of mechanisms: kernels, roi")
     ap.add_argument("--eval-overrides", default="",
                     help="comma list of extra dotted overrides applied to "
                          "the final evals only")

@@ -1,5 +1,8 @@
-"""Combined BASI training loss (port of ``basi_tpu/train/loss.py``, kernels
-mechanism, single device).
+"""Combined BASI training losses (port of ``basi_tpu/train/loss.py``,
+single device): ``basi_loss`` for the kernels mechanism,
+``basi_roi_loss`` for the roi mechanism.
+
+The kernels mechanism's terms:
 
 * instance masks: Dice + BCE on the positive cells' masks, each cell's
   dynamic kernel applied to the mask features (sparse path); with
@@ -10,6 +13,10 @@ mechanism, single device).
 * saliency: BCE + Dice (or the BASNet hybrid) on the fused map and each
   deep-supervision level, target = union of the valid GT masks max-pooled
   to /4, averaged over the heads.
+
+The roi mechanism replaces the instance mask term with BCE + Dice in the
+ROI frame and adds box regression, (1 - IoU) of the decoded cell boxes
+at the positive cells (``basi_roi_loss``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from basi_tpu_torch.ops.losses import (
     sigmoid_bce,
 )
 from basi_tpu_torch.ops.resize import maxpool_hw
+from basi_tpu_torch.ops.roi import box_iou, roi_align
 from basi_tpu_torch.train.targets import assign_targets, assign_targets_sparse
 
 
@@ -91,5 +99,57 @@ def basi_loss(outputs: BASIOutputs, gt_masks: torch.Tensor,
         "score_focal": score_loss,
         "saliency": sal,
         "num_pos_cells": total_pos / n,
+    }
+    return total, metrics
+
+
+ROI_TARGETS = ("sel_idx", "tgt_masks", "pos_sel", "score_tgt", "num_pos",
+               "sel_boxes")
+
+
+def basi_roi_loss(outputs: BASIOutputs, targets: dict[str, torch.Tensor],
+                  gt_masks: torch.Tensor, gt_valid: torch.Tensor, *,
+                  loss_kind: str = "bce_dice", mask_weight: float = 3.0,
+                  score_weight: float = 1.0, box_weight: float = 1.0,
+                  saliency_weight: float = 1.0
+                  ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Total loss and metrics of the roi mechanism. ``targets``: the
+    ``assign_targets_roi`` outputs by their ``ROI_TARGETS`` names, made
+    before the forward (the mask head predicts at the assigned GT boxes);
+    ``outputs.roi_mask_logits`` (N, P, R, R) are the predictions at those
+    boxes. Terms: BCE + Dice in the ROI frame against the /4 GT masks
+    cropped to the same boxes by the same ``roi_align`` and binarized at
+    0.5; focal objectness; box regression, the mean (1 - IoU) of the
+    decoded cell boxes against the GT boxes over the positive cells
+    (metric ``box_iou``); the shared saliency branch."""
+    n, p = targets["pos_sel"].shape
+    roi_logits = outputs.roi_mask_logits
+    r = roi_logits.shape[-1]
+    h, w = targets["tgt_masks"].shape[-2:]
+    crops = roi_align(targets["tgt_masks"].float().reshape(n * p, h, w, 1),
+                      targets["sel_boxes"].reshape(n * p, 1, 4), r)
+    tgt_roi = (crops.reshape(n, p, r, r) > 0.5).float()
+    pos = targets["pos_sel"]
+    inst_dice = dice_loss(roi_logits, tgt_roi, valid=pos)
+    inst_bce = sigmoid_bce(roi_logits, tgt_roi,
+                           weights=pos[..., None, None].expand_as(roi_logits))
+    mask_loss = inst_dice + inst_bce
+    score_loss = focal_loss(outputs.cell_scores, targets["score_tgt"])
+    s = outputs.cell_scores.shape[1]
+    pred_boxes = outputs.cell_boxes.reshape(n, s * s, 4).gather(
+        1, targets["sel_idx"][..., None].expand(-1, -1, 4))
+    iou = box_iou(pred_boxes.float(), targets["sel_boxes"].float())
+    box_loss = ((1.0 - iou) * pos).sum() / pos.sum().clamp_min(1.0)
+    sal = saliency_branch_loss(outputs, gt_masks, gt_valid, loss_kind)
+    total = (mask_weight * mask_loss + score_weight * score_loss
+             + box_weight * box_loss + saliency_weight * sal)
+    metrics = {
+        "loss": total,
+        "mask_dice": inst_dice,
+        "mask_bce": inst_bce,
+        "score_focal": score_loss,
+        "box_iou": box_loss,
+        "saliency": sal,
+        "num_pos_cells": targets["num_pos"].sum() / n,
     }
     return total, metrics

@@ -12,6 +12,9 @@ from them) or ``instance_stats`` on the full-resolution masks, with ``cx``,
 /4, then flipped; the train-mode forward (the trunk frozen or
 rematerialized by ``train.freeze_bn`` and ``train.remat``; every cell's
 candidate mask when ``train.max_pos_cells=0``), the loss and the backward.
+The roi mechanism assigns its targets before the forward, whose ROI mask
+head predicts at the assigned GT boxes, and takes ``basi_roi_loss``; it
+keeps ``max_pos_cells`` cells (64 where that is 0: it has no dense path).
 Micro-batches run in turn, each normalizing its own loss and moving the
 BN running statistics in sequence; the gradient kept is their mean,
 accumulated as ``g / accum`` as JAX's scan carries it, and the metrics
@@ -47,9 +50,9 @@ from basi_tpu_torch.data.transforms import (
 )
 from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
 from basi_tpu_torch.ops.resize import maxpool_hw
-from basi_tpu_torch.train.loss import basi_loss
+from basi_tpu_torch.train.loss import ROI_TARGETS, basi_loss, basi_roi_loss
 from basi_tpu_torch.train.state import Schedule, TrainState, clip_by_global_norm
-from basi_tpu_torch.train.targets import instance_stats
+from basi_tpu_torch.train.targets import assign_targets_roi, instance_stats
 
 MASK_STRIDE = 4  # the mask features are H/4 x W/4
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -144,15 +147,29 @@ def loss_and_grads(state: TrainState, batch: dict, draws: AugmentDraws,
     imgs, masks, valid, stats = prepare_batch(batch, draws, cfg_data, dtype)
     model = state.model
     model.zero_grad(set_to_none=True)
-    dense = cfg_train.max_pos_cells <= 0
-    out = model(imgs, train=True, frozen_bn=cfg_train.freeze_bn,
-                remat=cfg_train.remat, with_candidates=dense)
-    loss, metrics = basi_loss(
-        out, masks, valid, loss_kind=cfg_train.loss,
-        mask_weight=cfg_train.mask_loss_weight,
-        score_weight=cfg_train.score_loss_weight,
-        saliency_weight=cfg_train.saliency_loss_weight,
-        max_pos_cells=cfg_train.max_pos_cells, gt_stats=stats)
+    weights = dict(loss_kind=cfg_train.loss,
+                   mask_weight=cfg_train.mask_loss_weight,
+                   score_weight=cfg_train.score_loss_weight,
+                   saliency_weight=cfg_train.saliency_loss_weight)
+    run = dict(train=True, frozen_bn=cfg_train.freeze_bn,
+               remat=cfg_train.remat)
+    if model.instance_mechanism == "roi":
+        # the targets first: the ROI mask head predicts at their GT boxes
+        mask_hw = (imgs.shape[1] // MASK_STRIDE, imgs.shape[2] // MASK_STRIDE)
+        cells = cfg_train.max_pos_cells if cfg_train.max_pos_cells > 0 else 64
+        targets = dict(zip(ROI_TARGETS, assign_targets_roi(
+            masks, valid, grid_size=model.grid_size, mask_hw=mask_hw,
+            max_pos_cells=cells, stats=stats)))
+        out = model(imgs, roi_boxes=targets["sel_boxes"], **run)
+        loss, metrics = basi_roi_loss(
+            out, targets, masks, valid,
+            box_weight=cfg_train.box_loss_weight, **weights)
+    else:
+        dense = cfg_train.max_pos_cells <= 0
+        out = model(imgs, with_candidates=dense, **run)
+        loss, metrics = basi_loss(
+            out, masks, valid, max_pos_cells=cfg_train.max_pos_cells,
+            gt_stats=stats, **weights)
     loss.backward()
     return loss, metrics
 

@@ -9,7 +9,8 @@ resolution by max-pool where it is an integer multiple of it, else by a
 bilinear resize thresholded at 0.5. The sparse path keeps the first
 ``max_pos_cells`` cells of a stable sort that puts positives first, so
 positives beyond the cap drop by index, as in JAX; the dense path
-(``assign_targets``) gives every cell its target.
+(``assign_targets``) gives every cell its target, and the roi mechanism's
+(``assign_targets_roi``) adds each kept cell's GT box.
 
 Shapes: gt_masks (N, M, H, W) 0/1 (any dtype), gt_valid (N, M).
 """
@@ -113,6 +114,19 @@ def assign_targets(gt_masks, gt_valid, grid_size: int = 16,
     return tgt, cell_pos, score_tgt
 
 
+def _positive_cells(small, flat_winner, cell_pos, max_pos_cells: int):
+    """The first ``max_pos_cells`` cells of a stable sort that puts the
+    positives first: (sel_idx (N, P), pos_sel (N, P), win (N, P) their
+    instances, tgt_sel (N, P, h, w) their instances' masks, zero where
+    the cell is not positive)."""
+    order = torch.argsort(-cell_pos, dim=-1, stable=True)
+    sel_idx = order[:, :max_pos_cells]
+    pos_sel = cell_pos.gather(1, sel_idx)
+    win = flat_winner.gather(1, sel_idx)
+    rows = torch.arange(small.shape[0], device=small.device)[:, None]
+    return sel_idx, pos_sel, win, small[rows, win] * pos_sel[..., None, None]
+
+
 def assign_targets_sparse(gt_masks, gt_valid, grid_size: int = 16,
                           mask_hw=(128, 128), center_sigma: float = 0.2,
                           max_pos_cells: int = 64, stats: dict | None = None):
@@ -121,10 +135,27 @@ def assign_targets_sparse(gt_masks, gt_valid, grid_size: int = 16,
     (N, S, S, 1), num_pos (N,))."""
     small, flat_winner, cell_pos, score_tgt = _assignment_core(
         gt_masks, gt_valid, grid_size, mask_hw, center_sigma, stats)
-    order = torch.argsort(-cell_pos, dim=-1, stable=True)  # positives first
-    sel_idx = order[:, :max_pos_cells]
-    pos_sel = cell_pos.gather(1, sel_idx)
-    win = flat_winner.gather(1, sel_idx)  # (N, P) instance index
-    rows = torch.arange(small.shape[0], device=small.device)[:, None]
-    tgt_sel = small[rows, win] * pos_sel[..., None, None]
+    sel_idx, pos_sel, _, tgt_sel = _positive_cells(
+        small, flat_winner, cell_pos, max_pos_cells)
     return sel_idx, tgt_sel, pos_sel, score_tgt, cell_pos.sum(-1)
+
+
+def assign_targets_roi(gt_masks, gt_valid, grid_size: int = 16,
+                       mask_hw=(128, 128), center_sigma: float = 0.2,
+                       max_pos_cells: int = 64, stats: dict | None = None):
+    """Targets of the roi mechanism: the sparse path's cells, each with its
+    instance's GT box (the ROI mask head trains at GT boxes; the box head
+    has its own loss). Returns ``assign_targets_sparse``'s five and
+    sel_boxes (N, P, 4) f32 normalized (y0, x0, y1, x1), zero where the
+    cell is not positive."""
+    if stats is None:
+        stats = instance_stats(gt_masks, gt_valid)
+    small, flat_winner, cell_pos, score_tgt = _assignment_core(
+        gt_masks, gt_valid, grid_size, mask_hw, center_sigma, stats)
+    sel_idx, pos_sel, win, tgt_sel = _positive_cells(
+        small, flat_winner, cell_pos, max_pos_cells)
+    boxes = torch.stack([stats["y0"], stats["x0"], stats["y1"], stats["x1"]],
+                        dim=-1)  # (N, M, 4)
+    sel_boxes = boxes.gather(1, win[..., None].expand(-1, -1, 4))
+    return (sel_idx, tgt_sel, pos_sel, score_tgt, cell_pos.sum(-1),
+            sel_boxes * pos_sel[..., None])

@@ -62,8 +62,8 @@
    written (non-square scenes letterboxed by the port's numpy resize;
    ResNet-50, 512^2, bf16 compute with
    f32 params, batch 16, SGD + cosine + EMA), seeded weights, once for each
-   ``model.bn_impl``: ``Trainer.train`` runs 10 steps of ``xla``, 10 of
-   ``fused`` and 3 of ``stats``. Every step must launch
+   ``model.bn_impl``: ``Trainer.train`` runs 4 steps of ``xla``, 4 of
+   ``fused`` and 2 of ``stats``. Every step must launch
    ``normalize_and_flip`` once and ``upsample_int`` forward and backward 9
    times each, and per step 53 ``channel_moments`` and 53
    ``channel_dual_sums`` (fused), 53 and 0 (stats), none (xla); the loss
@@ -89,12 +89,12 @@
    every gradient agree within 1e-3.
 7. Evaluation: ``Inferencer.evaluate`` of ``bench_accuracy`` at full width
    in the original frame (``infer.ap_at_original=true``; the preset's
-   non-square originals, so the paste is not the identity), 64 val images
-   in 4 batches of 16, bf16, seeded weights; with the disk native-GT cache
+   non-square originals, so the paste is not the identity), 32 val images
+   in 2 batches of 16, bf16, seeded weights; with the disk native-GT cache
    built beforehand in a temporary directory (the val set's packed GT on
    the device), once with ``infer.wf`` off and once on, then on without
    the cache. Each run:
-   every metric finite, 64 images, 9 ``upsample_int`` and 1
+   every metric finite, 32 images, 9 ``upsample_int`` and 1
    ``upsample_sigmoid`` launch per batch and nothing else; without the
    cache the same metrics. Prints the metrics, ``infer_ms_per_batch``,
    ``imgs_per_s`` and the wall clock per batch, then one batch traced by
@@ -208,14 +208,37 @@
    the card against the CPU, the same weights, batch and draws
    (``check_f32_step``; micro-batches of 4 images).
 
+12. The roi mechanism (``model.instance_mechanism=roi``; seeded roi
+   weights, objectness and ROI mask logits spread away from their ties,
+   ``roi_smoke_weights``), each path driven with the counters set to 0
+   just before it and read just after: serving at ``val_v4-8_ap``
+   (ResNet-50, FPN 256, bf16, batch 8, 512^2, ``roi_top_k`` 64, R 28) on
+   the default device, ``predict_batch`` + ``full_res_masks`` launching 9
+   ``upsample_int`` and 1 ``upsample_sigmoid``, finite slots, ms per batch
+   (CUDA events) and a profiled batch by kernel class, the roi AOT
+   artifact bit-equal to ``predict_batch``; f32 on the card (TF32 off)
+   against the CPU at batch 2: proposals within 1e-5, the same slots,
+   scores and masks within 1e-3 away from the pixels whose centre lies
+   within 1e-5 of a box edge (``_edge_pixels``); ``bench_accuracy`` with
+   roi under ``model.bn_impl`` xla and fused (``Trainer.train``, 2 steps
+   with ``per_step_launches``'s launches, every param moved; then a
+   repeated batch timed by CUDA events with the peak of
+   ``max_memory_allocated`` and a profiled step by class); ``evaluate``
+   of ``bench_accuracy`` with roi in the original frame over 32 val
+   images (9 ``upsample_int`` and 1 ``upsample_sigmoid`` a batch). Every
+   kernel of the roi path must have launched on it.
+
 Any failure raises and exits non-zero; so does a machine without CUDA or
 a directory without the package. The line before the last is the
 kernels' JSON record, ``{"kernels": [...]}``, one entry for each of the six
 kernels with ``name``, ``route`` ("cuda"), ``source`` (its ``.cu`` file),
 ``replaces`` (the TPU kernel's file:line), ``launches`` (on its path:
-``upsample_int``, its backward and ``normalize_and_flip`` over the 10
+``upsample_int``, its backward and ``normalize_and_flip`` over the 4
 ``xla`` training steps, ``upsample_sigmoid`` over the serving run, the BN
-kernels over the 10 ``fused`` steps), ``max_abs_err`` (against its plain
+kernels over the 4 ``fused`` steps), ``roi_launches`` (the same
+kernel's counts on phase 12's roi paths, by path: ``serving``, the
+``xla`` and ``fused`` training steps, ``eval``; paths that launched it
+none are left out), ``max_abs_err`` (against its plain
 version) and, per forward or step (nine ``upsample_int`` calls of a
 serving forward, nine backward calls and one ``normalize_and_flip`` of a
 training step, one ``upsample_sigmoid`` call, 53 calls of each BN
@@ -1275,7 +1298,7 @@ def check_f32(cfg, sd, dev, gen):
 
 TRAIN_OVERRIDES = ["train.log_every=1"]
 # steps of Trainer.train per model.bn_impl, and the launches of each step
-PATH_STEPS = {"xla": 10, "fused": 10, "stats": 3}
+PATH_STEPS = {"xla": 4, "fused": 4, "stats": 2}
 BN_LAYERS = 53
 PER_STEP = {
     impl: {"upsample_int": 9, "upsample_int_bwd": 9, "upsample_sigmoid": 0,
@@ -1483,11 +1506,10 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_steps(trainer, batch, losses, bn_impl: str) -> float:
-    """Phase 5: ``torch.profiler`` over ``PROFILED_STEPS`` repeated-batch
-    steps; prints device ms and launches per step by kernel class, and the
-    device's busy share of the (profiled) host step time. Returns the
-    device ms per step."""
+def _profile_by_class(fn, label: str, reps: int = PROFILED_STEPS) -> float:
+    """``torch.profiler`` over ``reps`` calls of ``fn``: device ms and
+    launches per call by kernel class, and the busy share of the host's
+    time; returns the device ms per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1495,13 +1517,12 @@ def profile_steps(trainer, batch, losses, bn_impl: str) -> float:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
-            losses.append(trainer.train_step(trainer.state, batch)["loss"])
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+        wall = (time.perf_counter() - t0) * 1e3 / reps
     by_class: dict = {}
     for evt in prof.key_averages():
-        # annotation ranges (``Optimizer.step#...``) would count twice
         if evt.device_type != DeviceType.CUDA or "#" in evt.key:
             continue
         us = getattr(evt, "self_device_time_total", None)
@@ -1509,16 +1530,22 @@ def profile_steps(trainer, batch, losses, bn_impl: str) -> float:
             us = evt.self_cuda_time_total
         ms, n = by_class.get(_kernel_class(evt.key), (0.0, 0))
         by_class[_kernel_class(evt.key)] = (ms + us / 1e3, n + evt.count)
-    total = sum(ms for ms, _ in by_class.values()) / PROFILED_STEPS
-    launches = sum(n for _, n in by_class.values()) // PROFILED_STEPS
-    print(f"profile bn_impl={bn_impl}, {PROFILED_STEPS} repeated-batch "
-          f"steps: host {wall:.3f} ms/step with the profiler on; device "
-          f"{total:.3f} ms/step in {launches} launches/step (busy "
-          f"{100 * total / wall:.1f}%)")
+    total = sum(ms for ms, _ in by_class.values()) / reps
+    launches = sum(n for _, n in by_class.values()) // reps
+    print(f"profile {label}, {reps} calls: host {wall:.3f} ms/call with the "
+          f"profiler on; device {total:.3f} ms/call in {launches} "
+          f"launches/call (busy {100 * total / wall:.1f}%)")
     for cls, (ms, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {ms / PROFILED_STEPS:9.3f} ms {n // PROFILED_STEPS:6d} "
-              f"launches  {cls}")
+        print(f"  {ms / reps:9.3f} ms {n // reps:6d} launches  {cls}")
     return total
+
+
+def profile_steps(trainer, batch, losses, bn_impl: str) -> float:
+    """Phase 5: ``torch.profiler`` over ``PROFILED_STEPS`` repeated-batch
+    steps (``_profile_by_class``); returns the device ms per step."""
+    return _profile_by_class(
+        lambda: losses.append(trainer.train_step(trainer.state, batch)["loss"]),
+        f"bn_impl={bn_impl}, repeated-batch steps", PROFILED_STEPS)
 
 
 def strided_cotangents(dev, trainer, batch, losses) -> None:
@@ -1677,8 +1704,8 @@ def check_f32_step(dev, bn_impl: str, overrides=(), label: str = ""):
 
 # Phase 7: evaluation at full width, the preset's non-square originals
 # (scale 1.5, letterboxed by the port's numpy resize).
-EVAL_OVERRIDES = ["data.synthetic_n=256", "infer.ap_at_original=true"]
-EVAL_IMAGES = 64  # the val split of synthetic_n=256
+EVAL_OVERRIDES = ["data.synthetic_n=128", "infer.ap_at_original=true"]
+EVAL_IMAGES = 32  # the val split of synthetic_n=128
 TIMING_KEYS = ("infer_ms_per_batch", "imgs_per_s")
 # torch.profiler ranges of the eval program, by class; the EDT (the
 # weighted F's distance transform) is a range inside the SOD suite's
@@ -1694,10 +1721,10 @@ def _metrics_only(m: dict) -> dict:
 
 def run_eval(dev, gen) -> dict:
     """Phase 7: ``Inferencer.evaluate`` of ``bench_accuracy`` at full width
-    in the original frame (``EVAL_OVERRIDES``), 64 val images in 4 batches
+    in the original frame (``EVAL_OVERRIDES``), 32 val images in 2 batches
     of 16, bf16, with the disk native-GT cache built beforehand
     (device-resident GT), once with ``infer.wf`` off and once on, then on
-    without the cache (GT drawn per batch): every metric finite, 64 images, 9 ``upsample_int`` and 1
+    without the cache (GT drawn per batch): every metric finite, 32 images, 9 ``upsample_int`` and 1
     ``upsample_sigmoid`` launches per batch, nothing else, and the same
     metrics without the cache. Then one batch under ``torch.profiler``.
     Returns the seeded weights it evaluated and its rate with the cache
@@ -3417,6 +3444,292 @@ def check_settings_f32(dev) -> None:
         check_f32_step(dev, "xla", base + ov, f"multiscale + {name}")
 
 
+# Phase 12: the roi mechanism
+ROI = ["model.instance_mechanism=roi"]
+ROI_SERVE_F32_BATCH = 2  # the CPU's f32 forward at full width
+ROI_TRAIN = ["data.synthetic_n=64"]  # 48 train scenes
+ROI_TRAIN_STEPS = 2
+ROI_WARMUP, ROI_TIMED = 2, 5
+ROI_EVAL = ["data.synthetic_n=128", "infer.ap_at_original=true"]  # 32 val
+ROI_EDGE = 1e-5
+
+
+def roi_smoke_weights(cfg, gen):
+    """Seeded f32 state dict of a roi model: objectness bias 0 and its
+    kernel 10 times wider, the ROI mask head's ``out`` kernel 300 times
+    wider (scores and mask probabilities spread away from their ties, so
+    card and CPU rank and binarize alike), non-trivial BN statistics."""
+    from basi_tpu_torch.models.basi import create_model
+
+    model = create_model(cfg.model, "cpu", gen)
+    with torch.no_grad():
+        model.roi_box.score.bias.zero_()
+        model.roi_box.score.weight.mul_(10.0)
+        model.roi_mask.out.weight.mul_(300.0)
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(
+                    torch.randn(m.running_mean.shape, generator=gen) * 0.1)
+                m.running_var.copy_(
+                    torch.rand(m.running_var.shape, generator=gen) + 0.5)
+    return model.state_dict()
+
+
+def _edge_pixels(boxes: torch.Tensor, hw) -> torch.Tensor:
+    """(N, h, w) True where a pixel's row or column centre lies within
+    ``ROI_EDGE`` of an edge of one of the image's boxes (N, K, 4): where
+    the paste's inside test may differ between boxes one ulp apart."""
+    h, w = hw
+    py = (torch.arange(h, dtype=torch.float64) + 0.5) / h
+    px = (torch.arange(w, dtype=torch.float64) + 0.5) / w
+    b = boxes.double().cpu()
+    rows = ((py - b[..., 0:1]).abs() <= ROI_EDGE) | (
+        (py - b[..., 2:3]).abs() <= ROI_EDGE)
+    cols = ((px - b[..., 1:2]).abs() <= ROI_EDGE) | (
+        (px - b[..., 3:4]).abs() <= ROI_EDGE)
+    return rows.any(1)[:, :, None] | cols.any(1)[:, None, :]
+
+
+def run_roi_serving(dev, gen) -> dict:
+    """Phase 12: ``predict_batch`` + ``full_res_masks`` at ``val_v4-8_ap``
+    with the roi mechanism (ResNet-50, FPN 256, bf16, batch 8, 512^2,
+    ``roi_top_k`` 64, R 28) on the default device: 9 ``upsample_int`` and
+    1 ``upsample_sigmoid`` launch and nothing else, finite slots, some
+    filled; ms per batch (CUDA events) and a profiled batch by class; the
+    AOT artifact equal to ``predict_batch`` bit for bit. Returns the
+    counted launches."""
+    import os
+    import tempfile
+
+    from basi_tpu_torch.aot import load_serving, save_serving
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.infer import Inferencer
+
+    cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"] + ROI)
+    sd = roi_smoke_weights(cfg, gen)
+    inf = Inferencer(cfg, state_dict=sd)
+    _require(inf.device == dev, f"Inferencer ran on {inf.device}")
+    n, size, k = cfg.infer.batch_size, cfg.model.image_size, \
+        cfg.model.num_slots
+    images = torch.randint(0, 256, (n, size, size, 3), generator=gen,
+                           dtype=torch.uint8)
+    batch = images.to(dev)
+    inf.predict_batch(batch)  # first-call set-up
+    torch.cuda.synchronize()
+    _zero_kernel_counts()
+    masks, scores, sal = inf.predict_batch(batch)
+    full = inf.full_res_masks(masks)
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    print(f"roi serving (val_v4-8_ap, {cfg.model.backbone}, "
+          f"{str(inf.dtype)[6:]}, batch {n}, {size}^2, roi_top_k "
+          f"{cfg.model.roi_top_k}, R {cfg.model.roi_resolution}): launches "
+          f"{ {a: b for a, b in launches.items() if b} }")
+    _require(launches == dict(_zero_counts(), upsample_int=9,
+                              upsample_sigmoid=1),
+             f"roi serving: expected 9 upsample_int and 1 upsample_sigmoid "
+             f"launch, nothing else; got {launches}")
+    _require(tuple(masks.shape) == (n, k, size // 4, size // 4)
+             and tuple(full.shape) == (n, k, size, size), "roi slot shapes")
+    _require(bool(torch.isfinite(masks.float()).all())
+             and bool(torch.isfinite(scores).all())
+             and bool(torch.isfinite(full).all()), "non-finite roi slots")
+    filled = int((scores > 0).sum())
+    _require(all(bool((scores[i] > 0).any()) for i in range(n)),
+             "an image filled no roi slot")
+    ms = _time_ms(lambda: inf.predict_batch(batch), iters=10)
+    print(f"roi predict_batch: {ms:.3f} ms/batch = {n * 1000.0 / ms:.1f} "
+          f"imgs/s (CUDA events, 10 batches); slots filled {filled} of "
+          f"{n * k}")
+    dev_ms = _profile_by_class(lambda: inf.predict_batch(batch),
+                               "roi predict_batch")
+    print(f"roi predict_batch device time {dev_ms:.3f} ms/batch")
+
+    root = tempfile.mkdtemp(prefix="basi_roi_aot_")
+    try:
+        path = os.path.join(root, "roi.basiaot")
+        t0 = time.perf_counter()
+        meta = save_serving(path, cfg, state_dict=sd)
+        art = load_serving(path)
+        got = art(images)
+        want = inf.predict_batch(batch)
+        _require(meta["instance_mechanism"] == "roi" and all(
+            g.dtype == w.dtype and torch.equal(g, w)
+            for g, w in zip(got, want)),
+            "the roi AOT artifact differs from predict_batch")
+        print(f"roi AOT artifact: exported and loaded in "
+              f"{time.perf_counter() - t0:.1f} s, equal to predict_batch bit "
+              f"for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del inf
+    torch.cuda.empty_cache()
+    check_roi_f32(cfg, sd, dev, images[:ROI_SERVE_F32_BATCH])
+    return launches
+
+
+def check_roi_f32(cfg, sd, dev, images) -> None:
+    """Phase 12: the roi serving model in f32 on the card (TF32 off) and
+    on the CPU, the same weights and images: proposed boxes within 1e-5
+    and in the same order, the same slots in the same order with scores
+    within 1e-3, /4 and full-resolution masks within 1e-3 away from the
+    pixels at a box edge (``_edge_pixels``, few)."""
+    import dataclasses
+
+    from basi_tpu_torch.infer import Inferencer
+
+    cfg32 = dataclasses.replace(cfg, infer=dataclasses.replace(
+        cfg.infer, dtype="float32", batch_size=len(images)))
+    res = []
+    for device in (dev, "cpu"):
+        inf = Inferencer(cfg32, device=device, state_dict=sd)
+        with torch.inference_mode():
+            out = inf.apply_model(images)
+            masks, scores = inf._select(out)
+            full = inf.full_res_masks(masks)
+        res.append([t.float().cpu() for t in (out.roi_boxes, out.roi_scores,
+                                              scores, masks, full)])
+        del inf
+    (bc, oc, sc, mc, fc), (bh, oh, sh, mh, fh) = res
+    box_err = float((bc - bh).abs().max())
+    _require(box_err <= 1e-5, f"roi boxes card vs cpu {box_err}")
+    _require(float((oc - oh).abs().max()) <= 1e-3, "roi proposal scores")
+    _require(torch.equal(sc > 0, sh > 0), "roi slots filled differently")
+    score_err = float((sc - sh).abs().max())
+    edge = _edge_pixels(bh, mh.shape[-2:])
+    keep = ~edge[:, None]
+    near = edge.clone()
+    for dim in (1, 2):
+        near |= edge.roll(1, dim) | edge.roll(-1, dim)
+    keep_full = ~near.repeat_interleave(4, 1).repeat_interleave(4, 2)[:, None]
+    mask_err = float(((mc - mh).abs() * keep).max())
+    full_err = float(((fc - fh).abs() * keep_full).max())
+    print(f"roi f32 card vs cpu (batch {len(images)}): boxes {box_err:.3e}, "
+          f"slot scores {score_err:.3e}, /4 masks {mask_err:.3e}, full-res "
+          f"{full_err:.3e}; {int(edge.sum())} /4 pixels at a box edge left "
+          f"out; slots filled {int((sh > 0).sum())}")
+    _require(score_err <= 1e-3 and mask_err <= 1e-3 and full_err <= 1e-3,
+             "roi f32 card vs cpu beyond 1e-3")
+    _require(float(edge.float().mean()) < 0.05, "too many edge pixels")
+
+
+def run_roi_training(dev) -> dict:
+    """Phase 12: ``bench_accuracy`` with the roi mechanism at full width
+    (bf16 on f32 masters, batch 16, 512^2), once under ``model.bn_impl``
+    xla and once under fused: ``Trainer.train`` on the default device
+    takes ``ROI_TRAIN_STEPS`` steps with their launches
+    (``per_step_launches``: the mechanism adds no kernel), finite losses
+    with the box term, every param moved; then one repeated batch,
+    ``ROI_WARMUP`` steps, ``ROI_TIMED`` timed by CUDA events with the peak
+    of ``max_memory_allocated``, and a profiled step by class. Returns
+    {bn_impl: launches}."""
+    import gc
+
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.train.loop import Trainer
+
+    out = {}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for impl in ("xla", "fused"):
+        cfg = get_config("bench_accuracy", TRAIN_OVERRIDES + ROI + ROI_TRAIN
+                         + [f"model.bn_impl={impl}"])
+        trainer = Trainer(cfg)
+        _require(trainer.device == dev, f"Trainer ran on {trainer.device}")
+        model = trainer.state.model
+        params0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        trainer.train(max_steps=ROI_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _kernel_counts()
+        want = {a: b * ROI_TRAIN_STEPS
+                for a, b in per_step_launches(cfg).items()}
+        recs = trainer.records
+        print(f"roi training, bench_accuracy, bn_impl={impl}: "
+              f"{ROI_TRAIN_STEPS} steps in {wall:.2f} s (host feed and "
+              f"first-call set-up included); launches {launches}; losses "
+              f"{[round(r['loss'], 4) for r in recs]}, box_iou "
+              f"{[round(r['box_iou'], 4) for r in recs]}")
+        _require(launches == want, f"roi bn_impl={impl}: expected {want}, "
+                 f"got {launches}")
+        _require(len(recs) == ROI_TRAIN_STEPS and all(
+            np.isfinite(v) for r in recs for v in r.values()),
+            f"roi [train] records {recs}")
+        n_p = _moved(params0, dict(model.named_parameters()))
+        _require(n_p == len(params0),
+                 f"roi: {n_p}/{len(params0)} params moved")
+        feed = trainer.feed.epoch(0)
+        batch = next(feed)
+        feed.close()
+        losses = [trainer.train_step(trainer.state, batch)["loss"]
+                  for _ in range(ROI_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start.record()
+        for _ in range(ROI_TIMED):
+            losses.append(trainer.train_step(trainer.state, batch)["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / ROI_TIMED
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        _require(all(np.isfinite([float(v) for v in losses])),
+                 "roi: a repeated-batch loss is not finite")
+        print(f"roi train step bn_impl={impl} (bf16, batch "
+              f"{cfg.data.batch_size}, {cfg.model.image_size}^2, repeated "
+              f"batch, {ROI_TIMED} steps, CUDA events): {ms:.3f} ms/step = "
+              f"{cfg.data.batch_size * 1000.0 / ms:.1f} imgs/s; peak "
+              f"{peak:.3f} GiB allocated")
+        dev_ms = profile_steps(trainer, batch, losses, f"{impl}, roi")
+        print(f"roi train step bn_impl={impl}: device busy "
+              f"{100 * dev_ms / ms:.1f}% (the profile's device ms over the "
+              f"event step time)")
+        out[impl] = launches
+        del trainer, model, params0, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_roi_eval(dev, gen) -> dict:
+    """Phase 12: ``evaluate`` of ``bench_accuracy`` with the roi mechanism
+    in the original frame (bf16, batch 16, the preset's non-square
+    originals; 32 val images in 2 batches) on the default device, seeded
+    roi weights: every metric finite, 32 images, 9 ``upsample_int`` and 1
+    ``upsample_sigmoid`` launch a batch and nothing else. Returns the
+    launches."""
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.data.datasets import make_dataset
+    from basi_tpu_torch.infer import Inferencer
+
+    cfg = get_config("bench_accuracy", ROI + ROI_EVAL)
+    inf = Inferencer(cfg, state_dict=roi_smoke_weights(cfg, gen))
+    _require(inf.device == dev, f"Inferencer ran on {inf.device}")
+    ds = make_dataset(cfg.data, split="val")
+    n_b = -(-len(ds) // cfg.infer.batch_size)
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    m = inf.evaluate(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    print(f"roi evaluate, bench_accuracy original frame: {m['num_images']} "
+          f"images in {n_b} batches in {wall:.3f} s ({len(ds) / wall:.1f} "
+          f"imgs/s by the wall clock, drawing scenes included); "
+          f"infer_ms_per_batch {m['infer_ms_per_batch']}; launches "
+          f"{ {a: b for a, b in launches.items() if b} }")
+    print(f"  metrics {json.dumps(_metrics_only(m))}")
+    _require(m["num_images"] == len(ds) and all(
+        np.isfinite(v) for v in m.values()), f"roi evaluate: {m}")
+    _require(launches == dict(_zero_counts(), upsample_int=9 * n_b,
+                              upsample_sigmoid=n_b),
+             f"roi evaluate: expected 9 upsample_int and 1 upsample_sigmoid "
+             f"a batch x {n_b}; got {launches}")
+    del inf
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -3489,6 +3802,21 @@ def main() -> int:
     check_settings_f32(dev)
     print(f"phase 11 (the rest of training) took "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    roi_launches = {"serving": run_roi_serving(dev, gen)}
+    roi_launches.update(run_roi_training(dev))
+    roi_launches["eval"] = run_roi_eval(dev, gen)
+    print(f"phase 12 (the roi mechanism) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    # every kernel of the roi path launched on it
+    for name, path in (("upsample_int", "serving"),
+                       ("upsample_sigmoid", "serving"),
+                       ("upsample_int_bwd", "xla"),
+                       ("normalize_and_flip", "xla"),
+                       ("channel_moments", "fused"),
+                       ("channel_dual_sums", "fused")):
+        _require(roi_launches[path][name] > 0,
+                 f"roi {path}: {name} never launched")
 
     # launches: each kernel's count over the path it serves, read right
     # after that path's run (upsample_int: the xla training path; the BN
@@ -3514,8 +3842,10 @@ def main() -> int:
     kernels = []
     for name, src, rep, r, n in rows:
         bound, by = _bound(r["bytes"], r["flops"])
+        roi = {path: launches[name] for path, launches in
+               roi_launches.items() if launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": n,
+                        "replaces": rep, "launches": n, "roi_launches": roi,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "device_ms": r["device_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": bound,

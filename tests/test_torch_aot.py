@@ -17,6 +17,8 @@ The JAX artifact needs jaxlib alone; the port's needs ``torch`` and
 ``basi_tpu_torch.kernels`` (its custom ops), a deliberate divergence.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import base64
 import dataclasses
 import json

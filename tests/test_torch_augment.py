@@ -15,6 +15,8 @@ Tolerances, each stated again where it is asserted:
 * the bilinear GT fallback of the targets and the dense loss: 1e-5.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import dataclasses
 
 import jax

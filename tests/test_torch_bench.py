@@ -9,6 +9,8 @@ e2e's infer rate is the one the same call measures. The numbers here are
 CPU numbers and stand for nothing on the card.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import json
 
 import pytest

@@ -30,6 +30,8 @@ so the f32 inputs here have mean 1 and spread 3 (``randn * 3 + 1``), where
 the cancellation costs nothing measurable.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import dataclasses
 
 import jax

@@ -20,6 +20,8 @@ accuracy tool of the port, on the CPU (the cases of
 * The tests' Trainers write no ``ckpt/`` into the working directory.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import dataclasses
 import json
 import os
@@ -469,7 +471,7 @@ def test_accuracy_tool_refusals(tmp_path):
         BA.main([])  # --out is required
     with pytest.raises(SystemExit, match="JAX package's records"):
         BA.main(["--out", str(ROOT / "bench_accuracy.json")])
-    for mech, err in (("roi", NotImplementedError),
+    for mech, err in (("roi,connected", NotImplementedError),
                       ("connected", NotImplementedError),
                       ("nope", ValueError)):
         with pytest.raises(err):

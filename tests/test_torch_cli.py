@@ -22,6 +22,8 @@ writes for the port (``--device cpu``).
   an unknown backbone, and colliding stems.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import json
 
 import numpy as np

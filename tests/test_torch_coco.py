@@ -16,6 +16,8 @@
   file's own image ids and original-size RLE masks.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import json
 import os
 

@@ -14,6 +14,8 @@
   files, each package reading the other's.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import dataclasses
 import json
 import os

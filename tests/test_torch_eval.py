@@ -23,6 +23,8 @@ per-batch outputs fed to the port's accumulation give JAX's metrics
 exactly. The ``Trainer`` runs its epoch to the end and evaluates.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import dataclasses
 import json
 import os

@@ -2,6 +2,8 @@
 through the importer, strict load into the torch mirror, and forward
 parity — the full circle of the interop story."""
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

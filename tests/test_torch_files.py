@@ -37,6 +37,8 @@
   written.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import dataclasses
 import hashlib
 import json

@@ -48,6 +48,8 @@ The entry points on the card: the custom ops ``basi::upsample_int`` and
 outputs, one launch a call); an artifact exported on the card
 (``aot.py``) equals the live ``predict_batch`` bit for bit and launches
 9 ``upsample_int`` a batch; the HTTP server answers concurrent uploads
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 from its handler threads, each label map equal to ``predict_batch`` +
 ``full_res_masks`` of its canvas.
 """

@@ -17,6 +17,8 @@ mode, on the same numpy inputs. Tolerances:
 on the card.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,10 @@ then go through ``load_jax_variables`` (``export_basinet`` +
   0.2-0.9% of the largest magnitude.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,15 +143,26 @@ def test_random_init_is_seeded_and_device_independent(setup):
 
 
 def test_roi_checkpoint_is_refused(setup):
+    """A tree with no instance head is refused; a roi checkpoint (its
+    ``roi_box`` and ``roi_mask`` heads) is refused by a kernels model and
+    loads into a roi model."""
     cfg, params, stats, _ = setup
-    roi_params = {k: v for k, v in params.items() if k != "instance"}
+    no_head = {k: v for k, v in params.items() if k != "instance"}
     with pytest.raises(ValueError, match="instance"):
+        load_jax_variables(create_model(cfg.model, "cpu"), no_head, stats)
+    rcfg = dataclasses.replace(cfg.model, instance_mechanism="roi",
+                               roi_resolution=8, roi_top_k=16)
+    roi_params, roi_stats = init_model(jax_create_model(rcfg), 64)
+    roi_params = jax.tree.map(np.array, roi_params)
+    with pytest.raises(RuntimeError, match="roi_box"):
         load_jax_variables(create_model(cfg.model, "cpu"), roi_params,
-                           stats)
+                           jax.tree.map(np.array, roi_stats))
+    load_jax_variables(create_model(rcfg, "cpu"), roi_params,
+                       jax.tree.map(np.array, roi_stats))
 
 
 @pytest.mark.parametrize("overrides", [
-    ["model.instance_mechanism=roi"],
+    ["model.instance_mechanism=roi", "infer.tta=hflip"],
     ["model.instance_mechanism=connected"],
     ["model.refine=true"],
     ["model.backbone=vgg16"],

@@ -14,11 +14,14 @@ entry points run on the card unless asked for the CPU.
   ``basi_tpu``, ``jax``, ``flax`` or ``PIL``.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import ast
 import dataclasses
 import os
 import pathlib
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -144,9 +147,26 @@ def test_unported_checkpoints_refused(what):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             convert.import_basinet({}, backbone="vgg16")
     elif what == "roi":
-        roi = {k: v for k, v in params.items() if k != "instance"}
+        # The JAX package's export refuses a roi checkpoint and the port's
+        # maps it, both ways exactly; a tree with no instance head at all
+        # is refused.
+        from basi_tpu.models.basi import create_model as jax_create_model
+        from basi_tpu.models.basi import init_model
+
+        mcfg = dataclasses.replace(tiny_config().model,
+                                   instance_mechanism="roi")
+        rp, rs = (jax.tree.map(np.asarray, t) for t in init_model(
+            jax_create_model(mcfg), mcfg.image_size))
         with pytest.raises(ValueError, match="instance"):
-            convert.export_basinet(roi, stats)
+            jax_export_basinet(rp, rs, **kw)
+        sd = convert.export_basinet(rp, rs, **kw)
+        assert {k.split(".")[0] for k in sd} >= {"roi_box", "roi_mask"}
+        back = convert.import_basinet(sd, **kw)
+        assert_trees_bitwise(back[0], rp)
+        assert_trees_bitwise(back[1], rs)
+        no_head = {k: v for k, v in params.items() if k != "instance"}
+        with pytest.raises(ValueError, match="instance head"):
+            convert.export_basinet(no_head, stats, **kw)
     else:
         with_refine = dict(params, refine=_refine_subtree(
             np.random.RandomState(3)))

@@ -23,6 +23,8 @@ predictor, 504 for a timeout; 16 concurrent requests, all answered; and
 the label map's overlap rule.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import base64
 import io
 import json

@@ -14,6 +14,8 @@ a subprocess checks that the port loads neither jax, flax nor the JAX
 package.
 """
 
+import torch_threads  # noqa: F401  (first: torch's share of the cores)
+
 import os
 import subprocess
 import sys
