@@ -20,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
+
+from basi_tpu_torch.utils.profiling import span
 
 _EPS = 1e-8
 _WF_BIG = 1e12
@@ -330,7 +331,7 @@ def weighted_f_measure(pred: torch.Tensor, target: torch.Tensor,
     p = torch.clamp(pred.float(), 0.0, 1.0) * w
     t = _binary(target) * w
     e = torch.abs(p - t) * w
-    with record_function("eval.edt"):
+    with span("eval.edt"):
         dist2, e_nearest = _edt_payload(t, e)
     et = torch.where(t > 0, e, e_nearest) * w
     ea = _gauss7(et)

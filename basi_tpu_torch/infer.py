@@ -32,7 +32,6 @@ from collections import deque
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from basi_tpu_torch.config import Config
 from basi_tpu_torch.convert import load_jax_variables
@@ -73,7 +72,7 @@ from basi_tpu_torch.utils.checkpoint import (
     load_params,
 )
 from basi_tpu_torch.utils.logging import save_mask_pngs
-from basi_tpu_torch.utils.profiling import maybe_trace
+from basi_tpu_torch.utils.profiling import maybe_trace, span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Original-frame eval: canvases are 128-multiples up to this side, and the
@@ -441,7 +440,7 @@ class Inferencer:
         """MAE, the F and E curves, S, boundary F and (``infer.wf``)
         weighted F of probability maps (N, H, W) against the GT union,
         over ``region`` (N, H, W) 0/1."""
-        with record_function("eval.sod"):
+        with span("eval.sod"):
             area = torch.clamp(region.sum(dim=(1, 2)), min=1.0)
             mae = (torch.abs(prob - union) * region).sum(dim=(1, 2)) / area
             s = s_measure(prob, union, valid=region)
@@ -472,16 +471,16 @@ class Inferencer:
         full-resolution saliency map)."""
         size = self.cfg.model.image_size
         gt_masks = maybe_unpack_masks(gt_masks, size)
-        with record_function("eval.forward"):
+        with span("eval.forward"):
             out = self.apply_model(images_u8)
-        with record_function("eval.selection"):
+        with span("eval.selection"):
             masks, scores = self._select(out)
-        with record_function("eval.upsample_sigmoid"):
+        with span("eval.upsample_sigmoid"):
             full = self.full_res_masks(masks)  # (N, K, size, size) f32
-        with record_function("eval.iou"):
+        with span("eval.iou"):
             iou = match_batch(full, gt_masks, self.cfg.infer.mask_threshold)
             areas = gt_masks.to(torch.int32).sum(dim=(2, 3))
-        with record_function("eval.sod"):
+        with span("eval.sod"):
             gv = gt_valid.float()
             union = (gt_masks.float() * gv[..., None, None]).amax(dim=1)
             prob = torch.sigmoid(out.saliency_logits.float())  # (N, h, w, 1)
@@ -502,16 +501,16 @@ class Inferencer:
         if packed:
             gt = unpack_masks(gt, canvas_hw[1])
         thr = self.cfg.infer.mask_threshold
-        with record_function("eval.paste"):
+        with span("eval.paste"):
             pasted = paste_masks_batch(full, valid_hw, canvas_hw, orig_hw)
-        with record_function("eval.iou"):
+        with span("eval.iou"):
             iou = match_batch(pasted, gt, thr)
             del pasted
             areas = gt.to(torch.int32).sum(dim=(2, 3))
-        with record_function("eval.paste"):
+        with span("eval.paste"):
             sal_c = paste_masks_batch(sal[:, None], valid_hw, canvas_hw,
                                       orig_hw)[:, 0]
-        with record_function("eval.sod"):
+        with span("eval.sod"):
             gv = gt_valid.float()
             union = (gt.float() * gv[..., None, None]).amax(dim=1)
         return {"iou": iou, "areas": areas,

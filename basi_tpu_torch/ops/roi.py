@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from basi_tpu_torch.utils.profiling import span
+
 _EPS = 1e-6
 # softplus(raw) * 0.05 / softplus(0.0), as XLA folds the two constants
 _BOX_SCALE = float(np.float32(0.05) / np.float32(np.log(2.0)))
@@ -83,16 +85,18 @@ def roi_align(feats: torch.Tensor, boxes: torch.Tensor,
     (N, K, 4) -> (N, K, R, R, E) in the features' dtype, computed in f32.
     Degenerate boxes (y1 <= y0) sample one clipped line: no NaNs, no
     special cases. The rows are contracted first, then the columns (the
-    JAX order); the intermediate is (N, K, R, W, E) f32."""
+    JAX order); the intermediate is (N, K, R, W, E) f32. Runs in the
+    ``roi.align`` span."""
     n, h, w, e = feats.shape
-    b = boxes.float()
-    wy = _crop_axis_weights(b[..., 0], b[..., 2], resolution, h)  # N,K,R,H
-    wx = _crop_axis_weights(b[..., 1], b[..., 3], resolution, w)  # N,K,R,W
-    k = b.shape[1]
-    rows = torch.bmm(wy.reshape(n, k * resolution, h),
-                     feats.float().reshape(n, h, w * e))
-    rows = rows.reshape(n, k, resolution, w, e)
-    return torch.matmul(wx[:, :, None], rows).to(feats.dtype)
+    with span("roi.align"):
+        b = boxes.float()
+        wy = _crop_axis_weights(b[..., 0], b[..., 2], resolution, h)
+        wx = _crop_axis_weights(b[..., 1], b[..., 3], resolution, w)
+        k = b.shape[1]
+        rows = torch.bmm(wy.reshape(n, k * resolution, h),
+                         feats.float().reshape(n, h, w * e))
+        rows = rows.reshape(n, k, resolution, w, e)
+        return torch.matmul(wx[:, :, None], rows).to(feats.dtype)
 
 
 def paste_rois(patches: torch.Tensor, boxes: torch.Tensor,

@@ -3,11 +3,13 @@
 ``Trainer(cfg, device=...)`` builds the dataset (``data/datasets.py``,
 numpy only), the model in train mode from seeded weights, the schedule, the
 state and the step; ``train(max_steps=None)`` runs the epochs and logs a
-``[train]`` record (step, epoch, lr, step_ms, imgs_per_s and the step's
-metrics) every ``train.log_every`` steps and at the last one. After each
-epoch it evaluates on the val split (``evaluate``: the EMA weights when
-the state has them, with the live BatchNorm running statistics) and logs
-a ``[val]`` record.
+``[train]`` record (step, epoch, lr, step_ms, feed_wait_ms, imgs_per_s and
+the step's metrics) every ``train.log_every`` steps and at the last one:
+``step_ms`` and ``feed_wait_ms`` are the host milliseconds a step since
+the last record, the whole step and the loop's wait for the feed's next
+batch. After each epoch it evaluates on the val split (``evaluate``: the
+EMA weights when the state has them, with the live BatchNorm running
+statistics) and logs a ``[val]`` record.
 
 The host feed is ``data/pipeline.py``'s ``DeviceFeed`` (shuffled by
 ``train.seed + epoch``, masks bit-packed): a thread assembles each batch,
@@ -56,6 +58,7 @@ from basi_tpu_torch.train.step import (
 )
 from basi_tpu_torch.utils.checkpoint import CheckpointManager
 from basi_tpu_torch.utils.logging import MetricLogger
+from basi_tpu_torch.utils.profiling import maybe_trace
 
 
 class Trainer:
@@ -116,7 +119,10 @@ class Trainer:
         total, or a preemption stop. Returns the last ``[train]`` record;
         after a whole epoch, updated with that epoch's eval metrics; after
         a stop, with ``preempted_at_step``, ``epoch`` and
-        ``checkpoint_saved``."""
+        ``checkpoint_saved``. With ``profile`` the whole run, evals
+        included, is traced into ``profile_dir`` (``utils/profiling.py``:
+        a Chrome trace and the spans' report beside it); a trace holds
+        every event, so it is meant for short runs (``max_steps``)."""
         cfg = self.cfg
         stop_at = self.max_steps if max_steps is None else min(max_steps,
                                                                self.max_steps)
@@ -126,42 +132,49 @@ class Trainer:
         last_saved = self.state.step if self.state.step else -1
         restore_handler = self._install_preempt_handler()
         try:
-            while self.state.step < stop_at:
-                epoch = self.state.step // self.steps_per_epoch
-                skip = self.state.step - epoch * self.steps_per_epoch
-                self._sync()
-                t0, since = time.perf_counter(), 0
-                for batch in self.feed.epoch(epoch, skip):
-                    metrics = self.train_step(self.state, batch)
-                    since += 1
-                    step = self.state.step
-                    if step % every == 0 or step == stop_at:
-                        fetched = {k: float(v) for k, v in metrics.items()}
-                        self._sync()
-                        ms = (time.perf_counter() - t0) * 1000.0 / since
-                        last = {"step": step, "epoch": epoch,
-                                "lr": self.schedule(step), "step_ms": ms,
-                                "imgs_per_s": cfg.data.batch_size * 1000.0 / ms,
-                                **fetched}
-                        self.records.append(last)
-                        self.logger.log(last, prefix="[train]")
-                        t0, since = time.perf_counter(), 0
-                    if self.ckpt is not None and ckpt_every \
-                            and step % ckpt_every == 0:
+            with maybe_trace(cfg.profile, cfg.profile_dir):
+                while self.state.step < stop_at:
+                    epoch = self.state.step // self.steps_per_epoch
+                    skip = self.state.step - epoch * self.steps_per_epoch
+                    self._sync()
+                    t0, since, wait = time.perf_counter(), 0, 0.0
+                    tw = t0
+                    for batch in self.feed.epoch(epoch, skip):
+                        wait += time.perf_counter() - tw
+                        metrics = self.train_step(self.state, batch)
+                        since += 1
+                        step = self.state.step
+                        if step % every == 0 or step == stop_at:
+                            fetched = {k: float(v) for k, v in metrics.items()}
+                            self._sync()
+                            ms = (time.perf_counter() - t0) * 1000.0 / since
+                            last = {"step": step, "epoch": epoch,
+                                    "lr": self.schedule(step), "step_ms": ms,
+                                    "feed_wait_ms": wait * 1000.0 / since,
+                                    "imgs_per_s":
+                                        cfg.data.batch_size * 1000.0 / ms,
+                                    **fetched}
+                            self.records.append(last)
+                            self.logger.log(last, prefix="[train]")
+                            t0, since, wait = time.perf_counter(), 0, 0.0
+                        if self.ckpt is not None and ckpt_every \
+                                and step % ckpt_every == 0:
+                            self.ckpt.save(self.state)
+                            last_saved = step
+                        if self._preempt.is_set():
+                            return self._handle_preemption(epoch, last_saved,
+                                                           last)
+                        if max_steps is not None and step >= stop_at:
+                            return last
+                        tw = time.perf_counter()
+                    eval_metrics = self.evaluate()  # after each epoch, as JAX's
+                    self.logger.log({"epoch": epoch, **eval_metrics},
+                                    prefix="[val]")
+                    if self.ckpt is not None and self.state.step != last_saved:
                         self.ckpt.save(self.state)
-                        last_saved = step
-                    if self._preempt.is_set():
-                        return self._handle_preemption(epoch, last_saved, last)
-                    if max_steps is not None and step >= stop_at:
-                        return last
-                eval_metrics = self.evaluate()  # after every epoch, as JAX's
-                self.logger.log({"epoch": epoch, **eval_metrics},
-                                prefix="[val]")
-                if self.ckpt is not None and self.state.step != last_saved:
-                    self.ckpt.save(self.state)
-                    last_saved = self.state.step
-                last = {**last, **eval_metrics}
-            return last
+                        last_saved = self.state.step
+                    last = {**last, **eval_metrics}
+                return last
         finally:
             restore_handler()
             self.logger.flush()

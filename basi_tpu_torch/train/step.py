@@ -21,7 +21,10 @@ accumulated as ``g / accum`` as JAX's scan carries it, and the metrics
 are averaged. Then one clip, one update (SGD or AdamW) and one EMA update
 with the ``min(d, (1 + t) / (10 + t))`` ramp. The state is updated in
 place (the JAX step returns a new one): params, optimizer state and EMA
-are written where they lie, so no second copy of them is ever held.
+are written where they lie, so no second copy of them is ever held. The
+stages run in the spans of ``utils/profiling.py`` (``train.ingest``,
+``train.targets``, ``train.forward``, ``train.loss``, ``train.backward``,
+``train.update``), which cost a flag check unless a profiler is on.
 
 The draws: ``draw_augment(state, n, cfg_data)`` takes every random number
 of one micro-batch from the state's ``torch.Generator``, in one fixed
@@ -53,6 +56,7 @@ from basi_tpu_torch.ops.resize import maxpool_hw
 from basi_tpu_torch.train.loss import ROI_TARGETS, basi_loss, basi_roi_loss
 from basi_tpu_torch.train.state import Schedule, TrainState, clip_by_global_norm
 from basi_tpu_torch.train.targets import assign_targets_roi, instance_stats
+from basi_tpu_torch.utils.profiling import span
 
 MASK_STRIDE = 4  # the mask features are H/4 x W/4
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -139,14 +143,21 @@ def prepare_batch(batch: dict, draws: AugmentDraws, cfg_data, dtype):
     return imgs, small.float(), batch["valid"], stats
 
 
-def loss_and_grads(state: TrainState, batch: dict, draws: AugmentDraws,
-                   cfg_train, cfg_data, dtype):
-    """Forward in train mode (BN running statistics update unless
-    ``train.freeze_bn``), the loss and its backward into the params'
-    ``.grad`` (set, not added to). Returns (loss, metrics)."""
-    imgs, masks, valid, stats = prepare_batch(batch, draws, cfg_data, dtype)
-    model = state.model
-    model.zero_grad(set_to_none=True)
+def forward_and_loss(state: TrainState, batch: dict,
+                     draws: AugmentDraws | None, cfg_train, cfg_data, dtype):
+    """The draws (``draw_augment``'s, where ``draws`` is None) and
+    ``prepare_batch``, the roi mechanism's targets, the forward in train
+    mode (BN running statistics update unless ``train.freeze_bn``) and the
+    loss, each in its span (``utils/profiling.py``); the params' ``.grad``
+    are cleared after ``prepare_batch``, so the last step's gradients are
+    not held through the forward. Returns (loss, metrics)."""
+    with span("train.ingest"):
+        if draws is None:
+            draws = draw_augment(state, batch["image"].shape[0], cfg_data)
+        imgs, masks, valid, stats = prepare_batch(batch, draws, cfg_data,
+                                                  dtype)
+        model = state.model
+        model.zero_grad(set_to_none=True)
     weights = dict(loss_kind=cfg_train.loss,
                    mask_weight=cfg_train.mask_loss_weight,
                    score_weight=cfg_train.score_loss_weight,
@@ -157,20 +168,33 @@ def loss_and_grads(state: TrainState, batch: dict, draws: AugmentDraws,
         # the targets first: the ROI mask head predicts at their GT boxes
         mask_hw = (imgs.shape[1] // MASK_STRIDE, imgs.shape[2] // MASK_STRIDE)
         cells = cfg_train.max_pos_cells if cfg_train.max_pos_cells > 0 else 64
-        targets = dict(zip(ROI_TARGETS, assign_targets_roi(
-            masks, valid, grid_size=model.grid_size, mask_hw=mask_hw,
-            max_pos_cells=cells, stats=stats)))
-        out = model(imgs, roi_boxes=targets["sel_boxes"], **run)
-        loss, metrics = basi_roi_loss(
-            out, targets, masks, valid,
-            box_weight=cfg_train.box_loss_weight, **weights)
-    else:
-        dense = cfg_train.max_pos_cells <= 0
+        with span("train.targets"):
+            targets = dict(zip(ROI_TARGETS, assign_targets_roi(
+                masks, valid, grid_size=model.grid_size, mask_hw=mask_hw,
+                max_pos_cells=cells, stats=stats)))
+        with span("train.forward"):
+            out = model(imgs, roi_boxes=targets["sel_boxes"], **run)
+        with span("train.loss"):
+            return basi_roi_loss(out, targets, masks, valid,
+                                 box_weight=cfg_train.box_loss_weight,
+                                 **weights)
+    dense = cfg_train.max_pos_cells <= 0
+    with span("train.forward"):
         out = model(imgs, with_candidates=dense, **run)
-        loss, metrics = basi_loss(
-            out, masks, valid, max_pos_cells=cfg_train.max_pos_cells,
-            gt_stats=stats, **weights)
-    loss.backward()
+    with span("train.loss"):
+        return basi_loss(out, masks, valid,
+                         max_pos_cells=cfg_train.max_pos_cells,
+                         gt_stats=stats, **weights)
+
+
+def loss_and_grads(state: TrainState, batch: dict, draws: AugmentDraws,
+                   cfg_train, cfg_data, dtype):
+    """``forward_and_loss`` and the backward into the params' ``.grad``
+    (set, not added to). Returns (loss, metrics)."""
+    loss, metrics = forward_and_loss(state, batch, draws, cfg_train,
+                                     cfg_data, dtype)
+    with span("train.backward"):
+        loss.backward()
     return loss, metrics
 
 
@@ -190,22 +214,25 @@ def accumulate_grads(state: TrainState, batch: dict, cfg_train, cfg_data,
     for i in range(accum):
         micro = {k: batch[k].chunk(accum)[i] for k in ("image", "masks",
                                                         "valid")}
-        draws = draw_augment(state, n // accum, cfg_data)
-        _, m = loss_and_grads(state, micro, draws, cfg_train, cfg_data, dtype)
-        metrics.append({k: v.detach() for k, v in m.items()})
-        if accum == 1:
-            return metrics[0]
-        with torch.no_grad():
-            g = [p.grad for p in params]
-            torch._foreach_div_(g, float(accum))
-            if acc is None:
-                acc = g
-            else:
-                torch._foreach_add_(acc, g)
-    for p, g in zip(params, acc):
-        p.grad = g
-    return {k: torch.stack([m[k] for m in metrics]).mean(0)
-            for k in metrics[0]}
+        loss, m = forward_and_loss(state, micro, None, cfg_train, cfg_data,
+                                   dtype)
+        with span("train.backward"):
+            loss.backward()
+            metrics.append({k: v.detach() for k, v in m.items()})
+            if accum == 1:
+                return metrics[0]
+            with torch.no_grad():
+                g = [p.grad for p in params]
+                torch._foreach_div_(g, float(accum))
+                if acc is None:
+                    acc = g
+                else:
+                    torch._foreach_add_(acc, g)
+            if i == accum - 1:
+                for p, g in zip(params, acc):
+                    p.grad = g
+                return {k: torch.stack([m[k] for m in metrics]).mean(0)
+                        for k in metrics[0]}
 
 
 def make_train_step(cfg_train, cfg_data, schedule: Schedule, dtype
@@ -218,8 +245,8 @@ def make_train_step(cfg_train, cfg_data, schedule: Schedule, dtype
 
     def step(state: TrainState, batch: dict) -> dict:
         metrics = accumulate_grads(state, batch, cfg_train, cfg_data, dtype)
-        named = dict(state.model.named_parameters())
-        with torch.no_grad():
+        with span("train.update"), torch.no_grad():
+            named = dict(state.model.named_parameters())
             if clip > 0:
                 clip_by_global_norm([p.grad for p in named.values()], clip)
             for group in state.optimizer.param_groups:

@@ -1,0 +1,21 @@
+"""Device milliseconds a training step spends in the program's
+``train.backward`` span (``loss.backward()``): from its entry event to its
+exit event on the step's stream, idle time inside the stage included, summed
+over the traced sub-window and divided by its steps
+(``basi_tpu_torch.utils.profiling.report``). Silent where the run was not
+traced, ran on no CUDA device, or the program has no such span."""
+
+SPAN = "train.backward"
+
+
+def read(facts):
+    if (facts.get("kind") != "train" or facts.get("trace") is None
+            or not facts.get("trace_steps")):
+        return None
+    from basi_tpu_torch.utils import profiling
+
+    report = getattr(profiling, "report", None)
+    got = report()["spans"].get(SPAN) if report is not None else None
+    if not got or got["device_s"] is None:
+        return None
+    return 1e3 * got["device_s"] / facts["trace_steps"]

@@ -52,6 +52,12 @@ import torch_threads  # noqa: F401  (first: torch's share of the cores)
 
 from its handler threads, each label map equal to ``predict_batch`` +
 ``full_res_masks`` of its canvas.
+
+The program's spans on the card (``utils/profiling.py``): a ``.item()``
+and a ``torch.tensor(x, device=)`` inside a span count one sync each at
+their own line, none outside; the six ``train.*`` stages of a traced roi
+step sum to within 2% of its first event to its last; the harness's
+``summarize`` counts no span as device work or as a launch.
 """
 
 from pathlib import Path
@@ -1381,3 +1387,114 @@ def test_gpu_adamw_resume_is_bit_for_bit(tmp_path):
             assert torch.equal(p, q)
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+# --- the program's spans and sync counter (utils/profiling.py) ----------------
+
+def _item(x):
+    return x.sum().item()
+
+
+def _scalar_on(dev):
+    return torch.tensor(2.0, device=dev)
+
+
+@pytest.mark.gpu
+def test_gpu_span_counts_each_sync_at_its_site():
+    """A ``.item()`` and a ``torch.tensor(x, device=)`` inside a span count
+    one sync each at their own line; the same calls outside spans, or with
+    the profiler off, count none, and the sync debug mode is off again
+    after the span."""
+    from basi_tpu_torch.utils import profiling as P
+
+    dev = _cuda()
+    x = torch.ones(8, device=dev)
+    mode = torch.cuda.get_sync_debug_mode()
+    with torch.profiler.profile():
+        P.reset()
+        _item(x)
+        with P.span("test.sync"):
+            _item(x)
+            _scalar_on(dev)
+        assert torch.cuda.get_sync_debug_mode() == mode
+        _item(x)
+        _scalar_on(dev)
+    with P.span("test.sync"):  # off
+        _item(x)
+    here = "tests/test_torch_gpu.py:"
+    syncs = P.report()["syncs"]
+    P.reset()
+    assert syncs == {
+        "count": 2, "by_span": {"test.sync": 2},
+        "by_site": {here + str(_item.__code__.co_firstlineno + 1):
+                    {"test.sync": 1},
+                    here + str(_scalar_on.__code__.co_firstlineno + 1):
+                    {"test.sync": 1}}}
+
+
+def _traced_roi_step(activities):
+    """A traced step of the tiny roi Trainer on the card (after one
+    untraced step): (profiler, the table's raw entries, report)."""
+    from basi_tpu_torch.train.loop import Trainer
+    from basi_tpu_torch.utils import profiling as P
+
+    dev = _cuda()
+    cfg = _tiny_train_cfg("model.instance_mechanism=roi",
+                          "model.roi_resolution=8", "model.roi_top_k=16",
+                          "data.batch_size=8", "model.image_size=128",
+                          "data.image_size=128")
+    tr = Trainer(cfg, device=dev)
+    feed = tr.feed.epoch(0)
+    batch = next(feed)
+    feed.close()
+    tr.train_step(tr.state, batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        tr.train_step(tr.state, batch)
+        torch.cuda.synchronize()
+    entries = {k: list(v[2]) for k, v in P._spans.items()}
+    rep = P.report()
+    P.reset()
+    return prof, entries, rep
+
+
+STAGES = ("train.ingest", "train.targets", "train.forward", "train.loss",
+          "train.backward", "train.update")
+
+
+@pytest.mark.gpu
+def test_gpu_train_stages_tile_a_traced_step():
+    """The six stages' device times sum to within 2% of the step's time
+    from its first event (``train.ingest``'s entry) to its last
+    (``train.update``'s exit); ``roi.align`` runs twice inside them."""
+    from torch.profiler import ProfilerActivity
+
+    _, entries, rep = _traced_roi_step([ProfilerActivity.CPU])
+    spans = rep["spans"]
+    assert all(spans[s]["calls"] == 1 for s in STAGES)
+    assert spans["roi.align"]["calls"] == 2
+    first = entries["train.ingest"][0][0]
+    last = entries["train.update"][-1][1]
+    whole = first.elapsed_time(last) * 1e-3
+    stages = sum(spans[s]["device_s"] for s in STAGES)
+    assert abs(stages - whole) <= 0.02 * whole, (stages, whole)
+    assert spans["roi.align"]["device_s"] < (spans["train.forward"]["device_s"]
+                                             + spans["train.loss"]["device_s"])
+
+
+@pytest.mark.gpu
+def test_gpu_summarize_counts_no_span_as_device_work():
+    """``perfbench.harness.trace.summarize`` of a traced step: the spans'
+    mirrors on the device's timeline are neither busy time nor launches."""
+    from torch.profiler import ProfilerActivity
+
+    from perfbench.harness import trace as T
+
+    prof, _, rep = _traced_roi_step([ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
+    events = list(prof.events())
+    names = set(rep["spans"])
+    assert not [e.name for e in events if e.name in names and T._is_device(e)]
+    kernels = [e for e in events if T._is_device(e)
+               and T.kernel_class(e.name) not in ("memcpy", "memset")]
+    assert T.summarize(events, 1.0)["kernels"] == len(kernels) > 0
