@@ -41,11 +41,10 @@ def instance_stats(gt_masks: torch.Tensor,
     cx = (col_mass * xs).sum(-1) / safe_area
     row_any = row_mass > 0
     col_any = col_mass > 0
-    big = torch.tensor(2.0, device=dev)
-    y_min = torch.where(row_any, ys, big).amin(-1)
-    y_max = torch.where(row_any, ys, -big).amax(-1)
-    x_min = torch.where(col_any, xs, big).amin(-1)
-    x_max = torch.where(col_any, xs, -big).amax(-1)
+    y_min = torch.where(row_any, ys, 2.0).amin(-1)
+    y_max = torch.where(row_any, ys, -2.0).amax(-1)
+    x_min = torch.where(col_any, xs, 2.0).amin(-1)
+    x_max = torch.where(col_any, xs, -2.0).amax(-1)
     valid = gt_valid.float() * (area > 0)
     on = valid > 0
     zero = torch.zeros((), device=dev)
@@ -83,8 +82,7 @@ def _assignment_core(gt_masks, gt_valid, grid_size: int, mask_hw,
     in_x = ((cc[None, :] - stats["cx"][..., None, None]).abs()
             <= half_w[..., None, None])
     hit = in_y & in_x & (stats["valid"][..., None, None] > 0)
-    inf = torch.tensor(float("inf"), device=dev)
-    area_rank = torch.where(hit, stats["area"][..., None, None], inf)
+    area_rank = torch.where(hit, stats["area"][..., None, None], float("inf"))
     winner = area_rank.argmin(dim=1)  # (N, S, S): first minimum, as jnp
     any_hit = hit.any(dim=1)
 

@@ -57,7 +57,9 @@ The program's spans on the card (``utils/profiling.py``): a ``.item()``
 and a ``torch.tensor(x, device=)`` inside a span count one sync each at
 their own line, none outside; the six ``train.*`` stages of a traced roi
 step sum to within 2% of its first event to its last; the harness's
-``summarize`` counts no span as device work or as a launch.
+``summarize`` counts no span as device work or as a launch; a step of
+the tiny Trainer (roi with either BatchNorm, kernels sparse and dense)
+counts no sync and runs under the sync debug mode ``error``.
 """
 
 from pathlib import Path
@@ -1432,18 +1434,20 @@ def test_gpu_span_counts_each_sync_at_its_site():
                     {"test.sync": 1}}}
 
 
-def _traced_roi_step(activities):
-    """A traced step of the tiny roi Trainer on the card (after one
-    untraced step): (profiler, the table's raw entries, report)."""
+_ROI = ("model.instance_mechanism=roi", "model.roi_resolution=8",
+        "model.roi_top_k=16", "data.batch_size=8", "model.image_size=128",
+        "data.image_size=128")
+
+
+def _traced_step(activities, *overrides):
+    """A traced step of a tiny Trainer on the card (after one untraced
+    step): (trainer, its batch, profiler, the table's raw entries,
+    report)."""
     from basi_tpu_torch.train.loop import Trainer
     from basi_tpu_torch.utils import profiling as P
 
     dev = _cuda()
-    cfg = _tiny_train_cfg("model.instance_mechanism=roi",
-                          "model.roi_resolution=8", "model.roi_top_k=16",
-                          "data.batch_size=8", "model.image_size=128",
-                          "data.image_size=128")
-    tr = Trainer(cfg, device=dev)
+    tr = Trainer(_tiny_train_cfg(*overrides), device=dev)
     feed = tr.feed.epoch(0)
     batch = next(feed)
     feed.close()
@@ -1455,7 +1459,7 @@ def _traced_roi_step(activities):
     entries = {k: list(v[2]) for k, v in P._spans.items()}
     rep = P.report()
     P.reset()
-    return prof, entries, rep
+    return tr, batch, prof, entries, rep
 
 
 STAGES = ("train.ingest", "train.targets", "train.forward", "train.loss",
@@ -1469,7 +1473,7 @@ def test_gpu_train_stages_tile_a_traced_step():
     (``train.update``'s exit); ``roi.align`` runs twice inside them."""
     from torch.profiler import ProfilerActivity
 
-    _, entries, rep = _traced_roi_step([ProfilerActivity.CPU])
+    *_, entries, rep = _traced_step([ProfilerActivity.CPU], *_ROI)
     spans = rep["spans"]
     assert all(spans[s]["calls"] == 1 for s in STAGES)
     assert spans["roi.align"]["calls"] == 2
@@ -1490,11 +1494,36 @@ def test_gpu_summarize_counts_no_span_as_device_work():
 
     from perfbench.harness import trace as T
 
-    prof, _, rep = _traced_roi_step([ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA])
+    _, _, prof, _, rep = _traced_step([ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA], *_ROI)
     events = list(prof.events())
     names = set(rep["spans"])
     assert not [e.name for e in events if e.name in names and T._is_device(e)]
     kernels = [e for e in events if T._is_device(e)
                and T.kernel_class(e.name) not in ("memcpy", "memset")]
     assert T.summarize(events, 1.0)["kernels"] == len(kernels) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overrides", [
+    (*_ROI, "model.bn_impl=xla"), (*_ROI, "model.bn_impl=fused"),
+    ("train.max_pos_cells=64",), ("train.max_pos_cells=0",)],
+    ids=["roi_xla", "roi_fused", "kernels_sparse", "kernels_dense"])
+def test_gpu_train_step_never_syncs(overrides):
+    """The step never waits on the card: a traced step counts no sync in
+    its spans, and the next one runs under torch's sync debug mode
+    ``error`` without raising (the roi mechanism with either BatchNorm,
+    the kernels mechanism's sparse and dense targets); the mode is put
+    back after it."""
+    from torch.profiler import ProfilerActivity
+
+    tr, batch, _, _, rep = _traced_step([ProfilerActivity.CPU], *overrides)
+    assert rep["syncs"]["count"] == 0, rep["syncs"]
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.train_step(tr.state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert torch.cuda.get_sync_debug_mode() == mode
+    torch.cuda.synchronize()

@@ -14,7 +14,10 @@ is asserted:
   IoU's in float64 within 1e-12 with ties (touching, equal and zero
   boxes), where the gradient of a maximum splits on both sides;
 * the heads, on converted weights: 1e-5;
-* ``assign_targets_roi``: indices and boxes exactly, masks exactly;
+* ``assign_targets_roi``: indices and boxes exactly, masks exactly; on a
+  batch of edge cases (an empty valid slot, an image with no valid
+  instance, contested cells) it, ``assign_targets_sparse`` and
+  ``instance_stats`` exactly, but the centres of mass within 1e-6;
 * ``basi_roi_loss``: the loss, each metric and the gradients w.r.t. every
   output within 1e-5.
 """
@@ -248,6 +251,81 @@ def test_assign_targets_roi_matches_jax(gt, with_stats, max_pos):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert float(got[4].max()) > max_pos or max_pos == 64  # the cap bites
     assert float(got[2].sum()) > 0 and float(got[5].abs().sum()) > 0
+
+
+def _edge_case_gt():
+    """(masks (3, 4, 64, 64) u8, valid (3, 4) u8). Image 0: a large square
+    and a small one on the same centre, so the small one claims every cell
+    of the large one's centre region; a valid slot with an empty mask (the
+    +-2 sentinels); an invalid slot with content. Image 1: content in every
+    slot, none valid (every cell ``inf``: argmin's first index). Image 2:
+    two equal squares 4 px apart; the second's centre region is a column of
+    the first's (the tie goes to the first), and a valid empty slot."""
+    masks = np.zeros((3, 4, 64, 64), np.uint8)
+    valid = np.zeros((3, 4), np.uint8)
+    masks[0, 0, 8:56, 8:56] = 1
+    masks[0, 1, 28:36, 28:36] = 1
+    masks[0, 3, 2:10, 50:60] = 1
+    valid[0, :3] = 1
+    masks[1, :, 10:30, 20:40] = 1
+    masks[2, 0, 28:36, 28:36] = 1
+    masks[2, 1, 28:36, 32:40] = 1
+    valid[2, :3] = 1
+    return masks, valid
+
+
+@pytest.mark.parametrize("fn,with_stats", [
+    ("instance_stats", True), ("sparse", True), ("sparse", False),
+    ("roi", True), ("roi", False)])
+def test_targets_edge_cases_equal_jax(fn, with_stats):
+    """``instance_stats`` and the sparse and roi targets on a valid empty
+    slot, an image with no valid instance and cells claimed by two
+    instances (smaller and equal areas): every output equal to the JAX
+    package's, but the centres of mass within 1e-6 (sums taken in another
+    order). With stats, each package's own full-resolution stats and the
+    /4 masks, as the step runs it; without, the full-resolution masks."""
+    masks, valid = _edge_case_gt()
+    jstats = jax.vmap(jax_targets.instance_stats)(jnp.asarray(masks),
+                                                  jnp.asarray(valid))
+    tstats = TT.instance_stats(_t(masks), _t(valid))
+    assert float(tstats["area"][0, 2]) == float(tstats["valid"][0, 2]) == 0
+    assert float(tstats["valid"][1].sum()) == 0
+    if fn == "instance_stats":
+        for k, v in tstats.items():
+            w = np.asarray(jstats[k])
+            assert v.dtype == torch.float32, k
+            if k in ("cy", "cx"):
+                np.testing.assert_allclose(v.numpy(), w, atol=1e-6, rtol=0)
+            else:
+                np.testing.assert_array_equal(v.numpy(), w, err_msg=k)
+        return
+    small = np.asarray(jax_maxpool_hw(jnp.asarray(masks), 4, 4), np.float32)
+    kw = dict(grid_size=8, mask_hw=(16, 16), max_pos_cells=64)
+    jfn = {"sparse": jax_targets.assign_targets_sparse,
+           "roi": jax_targets.assign_targets_roi}[fn]
+    tfn = {"sparse": TT.assign_targets_sparse,
+           "roi": TT.assign_targets_roi}[fn]
+    if with_stats:
+        want = jax.vmap(lambda m, v, s: jfn(m, v, stats=s, **kw))(
+            jnp.asarray(small), jnp.asarray(valid), jstats)
+        got = tfn(_t(small), _t(valid), stats=tstats, **kw)
+    else:
+        full = masks.astype(np.float32)
+        want = jax.vmap(lambda m, v: jfn(m, v, **kw))(jnp.asarray(full),
+                                                      jnp.asarray(valid))
+        got = tfn(_t(full), _t(valid), **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    _, tgt, pos, _, num_pos = got[:5]
+    # image 0: the small square wins all four of the large one's cells
+    assert float(num_pos[0]) == 4 and float(num_pos[1]) == 0
+    np.testing.assert_array_equal(tgt[0, :4].numpy(),
+                                  np.broadcast_to(small[0, 1], (4, 16, 16)))
+    # image 2: the second square's column of cells goes to the first
+    assert float(num_pos[2]) == 4 and float(pos[2, :4].sum()) == 4
+    np.testing.assert_array_equal(tgt[2, :4].numpy(),
+                                  np.broadcast_to(small[2, 0], (4, 16, 16)))
 
 
 def test_basi_roi_loss_matches_jax(gt):
