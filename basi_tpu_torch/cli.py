@@ -186,6 +186,8 @@ def cmd_import(args) -> int:
             "full import unsupported for model.instance_mechanism='roi' "
             "(reference checkpoints carry kernel-mechanism heads); import "
             "with --what backbone instead")
+    if backbone.startswith("convnext"):
+        raise ValueError(convert.no_jax_counterpart(backbone))
     if backbone.startswith("vgg"):
         raise NotImplementedError(f"backbone {backbone!r} not yet ported")
     if backbone not in STAGE_SIZES:

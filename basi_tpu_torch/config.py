@@ -16,7 +16,8 @@ from typing import Any
 
 @dataclass(frozen=True)
 class ModelConfig:
-    backbone: str = "resnet50"  # resnet18/34/50/101/152 | vgg16 | vgg19
+    # resnet18/34/50/101/152 | vgg16 | vgg19 | convnext_base (the port's)
+    backbone: str = "resnet50"
     fpn_channels: int = 256
     mask_channels: int = 64  # unified mask-feature embedding dim E
     grid_size: int = 16  # SxS instance cell grid

@@ -21,7 +21,8 @@ Both mappings are numpy only and are the port's own copies of the JAX
 package's ``convert/torch_export.py`` and ``convert/full_import.py`` for
 ResNet trunks and the kernels mechanism's heads of ``models.basi.BASINet``
 (tests hold them bitwise equal), grown here by the roi heads; VGG trunks
-and the refinement module are not ported.
+and the refinement module are not ported. The port's ConvNeXt trunks have
+no JAX counterpart, and every mapping refuses them (ValueError).
 """
 
 from __future__ import annotations
@@ -64,8 +65,17 @@ INSTANCE_HEADS = {"kernels": {"instance": (3, ("score", "kernel"))},
 
 
 def _check_backbone(backbone: str) -> None:
+    if backbone.startswith("convnext"):
+        raise ValueError(no_jax_counterpart(backbone))
     if backbone.startswith("vgg"):
         raise NotImplementedError(f"backbone {backbone!r} not yet ported")
+
+
+def no_jax_counterpart(backbone: str) -> str:
+    return (f"backbone {backbone!r} has no JAX counterpart: the JAX package "
+            f"builds no ConvNeXt trunk, so no JAX checkpoint or tree maps "
+            f"onto it; save and load it with the port's own checkpoints "
+            f"(utils/checkpoint.py)")
 
 
 def _check_no_refine(has_refine: bool) -> None:
@@ -248,6 +258,7 @@ def load_jax_variables(model: torch.nn.Module, params: dict,
                        batch_stats: dict) -> None:
     """Load JAX ``params``/``batch_stats`` (numpy or array leaves) into
     ``model`` (a ``models.basi.BASINet``)."""
+    _check_backbone(model.backbone_name)
     sd = export_basinet(params, batch_stats, stage_sizes=model.stage_sizes,
                         backbone=model.backbone_name)
     model.load_state_dict({k: torch.from_numpy(_host(v)) for k, v in sd.items()},
@@ -271,6 +282,7 @@ def to_jax_variables(model: torch.nn.Module,
     ``tensors``: parameter-named tensors (``named_parameters`` keys, e.g.
     gradients or the EMA) that take the params' places; the returned
     params tree then holds them."""
+    _check_backbone(model.backbone_name)
     sd = {k: v.detach() for k, v in model.state_dict().items()}
     for k, v in (tensors or {}).items():
         if k not in sd:

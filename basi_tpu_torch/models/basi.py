@@ -21,6 +21,12 @@ kernels (``ops.nms.select_instances_from_kernels``) and the loss only the
 positive cells' kernels; ``with_candidates`` adds the (N, S*S, H/4, W/4)
 candidates for the dense loss (``train.max_pos_cells=0``).
 
+The trunk is chosen by ``model.backbone``: a ResNet (``models/resnet.py``)
+or a ConvNeXt (``models/convnext.py``, the port's own: the JAX package has
+none), each handing C2..C5 to the FPN at its own widths. A ConvNeXt trunk
+has no BatchNorm (``refuse_batchnorm_setting``): it refuses ``model.bn_impl``
+fused or stats, and ``train.freeze_bn`` is refused with it.
+
 Two train settings act on the trunk alone, as the JAX model's
 ``bn_frozen`` and ``remat``: ``frozen_bn`` runs it in eval mode (running
 statistics, which never move; the BN scales and biases still train), and
@@ -40,6 +46,12 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from basi_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from basi_tpu_torch.models.convnext import (
+    CONVNEXT,
+    LAYER_SCALE_INIT,
+    Block,
+    ConvNeXtTrunk,
+)
 from basi_tpu_torch.models.fpn import FPN
 from basi_tpu_torch.models.layers import no_running_update
 from basi_tpu_torch.models.heads import (
@@ -60,6 +72,15 @@ _PRED_CONVS = ("saliency.fuse", "instance.score", "instance.kernel",
 _SCORE_CONVS = ("instance.score", "roi_box.score")
 _PRED_STD = 0.01
 _FOCAL_PRIOR_BIAS = -4.595
+
+
+def refuse_batchnorm_setting(backbone: str, setting: str) -> None:
+    """Raise ValueError for ``setting``, one that acts on BatchNorms
+    (``model.bn_impl`` fused or stats, ``train.freeze_bn``), on a trunk
+    without them."""
+    if backbone in CONVNEXT:
+        raise ValueError(f"{setting} acts on BatchNorms, and the {backbone} "
+                         f"trunk has none")
 
 
 class BASIOutputs(NamedTuple):
@@ -88,13 +109,19 @@ class BASINet(nn.Module):
         super().__init__()
         if backbone.startswith("vgg"):
             raise NotImplementedError(f"backbone {backbone!r} not yet ported")
-        if backbone not in STAGE_SIZES:
-            raise ValueError(f"unknown backbone {backbone!r}")
         self.backbone_name = backbone
-        self.stage_sizes = STAGE_SIZES[backbone]
-        self.backbone = ResNetTrunk(self.stage_sizes,
-                                    BLOCK_KIND.get(backbone, "bottleneck"),
-                                    bn_impl)
+        if bn_impl != "xla":
+            refuse_batchnorm_setting(backbone, f"model.bn_impl={bn_impl!r}")
+        if backbone in CONVNEXT:
+            self.stage_sizes, dims = CONVNEXT[backbone]
+            self.backbone = ConvNeXtTrunk(self.stage_sizes, dims)
+        elif backbone in STAGE_SIZES:
+            self.stage_sizes = STAGE_SIZES[backbone]
+            self.backbone = ResNetTrunk(self.stage_sizes,
+                                        BLOCK_KIND.get(backbone, "bottleneck"),
+                                        bn_impl)
+        else:
+            raise ValueError(f"unknown backbone {backbone!r}")
         self.fpn = FPN(self.backbone.out_channels, fpn_channels)
         self.saliency = SaliencyHead(fpn_channels, 64, 4)
         self.maskfeat = MaskFeatureHead(fpn_channels, 128, mask_channels, 4)
@@ -228,8 +255,9 @@ def cast_params(model: BASINet, dtype: torch.dtype) -> BASINet:
 def init_weights(model: BASINet, generator: torch.Generator) -> None:
     """Fill every parameter and buffer from ``generator`` (a CPU
     generator: the same seed gives the same weights on every device).
-    Convs: N(0, 1/fan_in), zero bias; prediction convs N(0, 0.01^2); norms
-    identity; BN running stats (0, 1)."""
+    Convs and Linears: N(0, 1/fan_in), zero bias; prediction convs N(0,
+    0.01^2); norms identity; BN running stats (0, 1); ConvNeXt's layer
+    scale ``LAYER_SCALE_INIT``."""
     def normal(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
@@ -239,7 +267,12 @@ def init_weights(model: BASINet, generator: torch.Generator) -> None:
             normal(m.weight, _PRED_STD if pred else m.weight[0].numel() ** -0.5)
             if m.bias is not None:
                 m.bias.fill_(_FOCAL_PRIOR_BIAS if name in _SCORE_CONVS else 0.0)
-        elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
+        elif isinstance(m, nn.Linear):
+            normal(m.weight, m.in_features ** -0.5)
+            m.bias.fill_(0.0)
+        elif isinstance(m, Block):
+            m.gamma.fill_(LAYER_SCALE_INIT)
+        elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
             if isinstance(m, nn.BatchNorm2d):

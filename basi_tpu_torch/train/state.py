@@ -26,6 +26,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from basi_tpu_torch.models.basi import refuse_batchnorm_setting
+
 Schedule = Callable[[int], float]
 
 
@@ -67,7 +69,10 @@ def _schedule(kind: str, base_lr: float, max_steps: int, power: float,
 
 
 def check_train_config(cfg) -> None:
-    """Raise NotImplementedError for training settings outside the port."""
+    """Raise NotImplementedError for training settings outside the port,
+    and ValueError for ``train.freeze_bn`` on a trunk without BatchNorm."""
+    if cfg.train.freeze_bn:
+        refuse_batchnorm_setting(cfg.model.backbone, "train.freeze_bn")
     todo = [
         (cfg.train.steps_per_dispatch > 1, "train.steps_per_dispatch > 1"),
         (cfg.parallel.num_devices > 1 or cfg.parallel.spatial_shards > 1,

@@ -228,6 +228,12 @@
    images (9 ``upsample_int`` and 1 ``upsample_sigmoid`` a batch). Every
    kernel of the roi path must have launched on it.
 
+13. The ConvNeXt-B trunk under the roi head (``run_convnext``): one
+   serving batch of 8 at ``val_v4-8_ap`` (``predict_batch``: 9
+   ``upsample_int``, finite slots) and two ``Trainer`` steps of
+   ``bench_accuracy`` with AdamW (finite losses, every parameter moved,
+   the peak memory).
+
 Any failure raises and exits non-zero; so does a machine without CUDA or
 a directory without the package. The line before the last is the
 kernels' JSON record, ``{"kernels": [...]}``, one entry for each of the six
@@ -3730,6 +3736,79 @@ def run_roi_eval(dev, gen) -> dict:
     return launches
 
 
+CONVNEXT = ["model.backbone=convnext_base", "train.optimizer=adamw",
+            "train.lr=0.0001", "train.weight_decay=0.05"]
+
+
+def run_convnext(dev, gen) -> None:
+    """Phase 13: the ConvNeXt-B trunk under the roi head on the default
+    device. Serving: ``predict_batch`` of one batch of 8 at
+    ``val_v4-8_ap`` (bf16, 512^2), 9 ``upsample_int`` launches and no
+    other kernel, finite slots; ms a batch by CUDA events.
+    Training: ``Trainer.train`` of ``bench_accuracy`` with AdamW (bf16 on
+    f32 masters, batch 16), two steps with finite losses and every
+    parameter moved (the first step's lr is 0 under the warm-up), the
+    step's ms and the peak of ``max_memory_allocated``."""
+    import gc
+
+    from basi_tpu_torch.config import get_config
+    from basi_tpu_torch.infer import Inferencer
+    from basi_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"] + ROI
+                     + CONVNEXT)
+    inf = Inferencer(cfg)
+    _require(inf.device == dev, f"Inferencer ran on {inf.device}")
+    n, size = cfg.infer.batch_size, cfg.model.image_size
+    batch = torch.randint(0, 256, (n, size, size, 3), generator=gen,
+                          dtype=torch.uint8).to(dev)
+    inf.predict_batch(batch)  # first-call set-up
+    torch.cuda.synchronize()
+    _zero_kernel_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    masks, scores, sal = inf.predict_batch(batch)
+    end.record()
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    print(f"convnext_base roi serving (bf16, batch {n}, {size}^2): "
+          f"{start.elapsed_time(end):.3f} ms a batch; launches "
+          f"{ {a: b for a, b in launches.items() if b} }")
+    _require(launches == dict(_zero_counts(), upsample_int=9),
+             f"convnext serving launches {launches}")
+    _require(bool(torch.isfinite(scores.float()).all())
+             and bool(torch.isfinite(masks.float()).all()),
+             "convnext serving: non-finite slots")
+    del inf, batch, masks, scores, sal
+    cfg = get_config("bench_accuracy", TRAIN_OVERRIDES + ROI + ROI_TRAIN
+                     + CONVNEXT)
+    trainer = Trainer(cfg)
+    _require(trainer.device == dev, f"Trainer ran on {trainer.device}")
+    model = trainer.state.model
+    params0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer.train(max_steps=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    recs = trainer.records
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"convnext_base roi training (bf16, AdamW, batch "
+          f"{cfg.data.batch_size}): 2 steps in {wall:.2f} s (first-call "
+          f"set-up included); losses {[round(r['loss'], 4) for r in recs]}; "
+          f"peak {peak:.3f} GiB allocated")
+    _require(len(recs) == 2 and all(np.isfinite(v) for r in recs
+                                    for v in r.values()),
+             f"convnext [train] records {recs}")
+    n_p = _moved(params0, dict(model.named_parameters()))
+    _require(n_p == len(params0), f"convnext: {n_p}/{len(params0)} params "
+             "moved")
+    del trainer, model, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -3807,6 +3886,10 @@ def main() -> int:
     roi_launches.update(run_roi_training(dev))
     roi_launches["eval"] = run_roi_eval(dev, gen)
     print(f"phase 12 (the roi mechanism) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_convnext(dev, gen)
+    print(f"phase 13 (the ConvNeXt trunk) took "
           f"{time.perf_counter() - t0:.1f} s")
     # every kernel of the roi path launched on it
     for name, path in (("upsample_int", "serving"),

@@ -60,6 +60,12 @@ step sum to within 2% of its first event to its last; the harness's
 ``summarize`` counts no span as device work or as a launch; a step of
 the tiny Trainer (roi with either BatchNorm, kernels sparse and dense)
 counts no sync and runs under the sync debug mode ``error``.
+
+The ConvNeXt-B trunk on the card (one block a stage, published widths):
+bf16 outputs within 2e-2 and gradients within 5e-2 in norm of the
+float32 reference (``perfbench/reference/convnext.py``); held in bf16, its
+forward launches no copy or layout kernel, and its spans open 36, 44 and
+36 times.
 """
 
 from pathlib import Path
@@ -1507,14 +1513,16 @@ def test_gpu_summarize_counts_no_span_as_device_work():
 @pytest.mark.gpu
 @pytest.mark.parametrize("overrides", [
     (*_ROI, "model.bn_impl=xla"), (*_ROI, "model.bn_impl=fused"),
-    ("train.max_pos_cells=64",), ("train.max_pos_cells=0",)],
-    ids=["roi_xla", "roi_fused", "kernels_sparse", "kernels_dense"])
+    ("train.max_pos_cells=64",), ("train.max_pos_cells=0",),
+    (*_ROI, "model.backbone=convnext_test", "train.optimizer=adamw")],
+    ids=["roi_xla", "roi_fused", "kernels_sparse", "kernels_dense",
+         "roi_convnext_adamw"])
 def test_gpu_train_step_never_syncs(overrides):
     """The step never waits on the card: a traced step counts no sync in
     its spans, and the next one runs under torch's sync debug mode
-    ``error`` without raising (the roi mechanism with either BatchNorm,
-    the kernels mechanism's sparse and dense targets); the mode is put
-    back after it."""
+    ``error`` without raising (the roi mechanism with either BatchNorm and
+    with the ConvNeXt trunk and AdamW, the kernels mechanism's sparse and
+    dense targets); the mode is put back after it."""
     from torch.profiler import ProfilerActivity
 
     tr, batch, _, _, rep = _traced_step([ProfilerActivity.CPU], *overrides)
@@ -1527,3 +1535,90 @@ def test_gpu_train_step_never_syncs(overrides):
         torch.cuda.set_sync_debug_mode(mode)
     assert torch.cuda.get_sync_debug_mode() == mode
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_gpu_convnext_trunk_bf16_matches_float32_reference():
+    """ConvNeXt-B's trunk at its published widths, one block a stage, on the
+    card in bf16 (f32 params, as the port trains): the four outputs within
+    2e-2 in norm of the float32 reference's (``perfbench/reference/
+    convnext.py``, TF32 off), and each leaf's gradient of a fixed
+    projection within 5e-2 in norm (the gradients of a bf16 backward
+    through LayerNorm and four stages; ``tests/test_torch_bf16.py`` holds
+    bf16 steps to 0.3)."""
+    from basi_tpu_torch.models.convnext import CONVNEXT, ConvNeXtTrunk
+    from perfbench.reference import convnext as RC
+
+    dev = _cuda()
+    depths, dims = (1, 1, 1, 1), CONVNEXT["convnext_base"][1]
+    gen = torch.Generator().manual_seed(0)
+    p = {}
+    for name, shape, kind in RC.trunk_spec(depths, dims):
+        z = torch.randn(shape, generator=gen)
+        if kind in ("conv", "linear"):
+            z = z * RC.init_std(shape, kind)
+        else:
+            z = {"one": 1 + 0.2 * z, "zero": 0.1 * z, "gamma": 0.5 * z}[kind]
+        p[name] = z.to(dev)
+    trunk = ConvNeXtTrunk(depths, dims).to(dev).to(
+        memory_format=torch.channels_last)
+    trunk.load_state_dict({k[len("backbone."):]: v for k, v in p.items()})
+    x = torch.randn(4, 3, 128, 128, generator=gen).to(dev)
+    got = trunk(x.to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last))
+    leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+    RC.CONVNEXT["one_block_base"] = (depths, dims)
+    try:
+        ref = RC.ConvNeXtRef(leaves, {"backbone": "one_block_base"},
+                             (0, 0, 0), (1, 1, 1), {})
+        want = ref.trunk(x)
+        proj = [torch.randn(t.shape, generator=gen).to(dev) for t in want]
+        sum((w.float() * q).sum() for w, q in zip(got, proj)).backward()
+        sum((w * q).sum() for w, q in zip(want, proj)).backward()
+    finally:
+        del RC.CONVNEXT["one_block_base"]
+    for i, (a, b) in enumerate(zip(got, want)):
+        rel = float((a.float() - b).detach().norm() / b.detach().norm())
+        assert a.dtype == torch.bfloat16 and rel <= 2e-2, (i, rel)
+    named = dict(trunk.named_parameters())
+    worst = max((float((named[k[9:]].grad - v.grad).norm() / v.grad.norm()),
+                 k) for k, v in leaves.items())
+    print(f"convnext trunk bf16 vs f32: worst gradient {worst}")
+    assert worst[0] <= 5e-2, worst
+
+
+@pytest.mark.gpu
+def test_gpu_convnext_trunk_makes_no_layout_copy():
+    """ConvNeXt-B's trunk held in bf16 (as serving casts it) on a
+    ``channels_last`` bf16 input: no copy, transpose or layout kernel in its
+    forward (the NHWC views of LayerNorm and the Linears are free), and
+    its spans open once a block (``convnext.dwconv``, ``convnext.mlp``) or
+    once a norm (``convnext.norm``: 36 + 8)."""
+    from torch.profiler import ProfilerActivity
+
+    from basi_tpu_torch.models.convnext import CONVNEXT, ConvNeXtTrunk
+    from basi_tpu_torch.utils import profiling as P
+
+    dev = _cuda()
+    trunk = ConvNeXtTrunk(*CONVNEXT["convnext_base"]).to(dev).to(
+        torch.bfloat16).to(memory_format=torch.channels_last)
+    x = torch.randn(2, 3, 256, 256, device=dev, dtype=torch.bfloat16
+                    ).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        trunk(x)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA,
+                                                ProfilerActivity.CPU]) as prof:
+            trunk(x)
+            torch.cuda.synchronize()
+    spans = P.report()["spans"]
+    P.reset()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    layout = [k for k in kernels if any(
+        f in k.lower() for f in ("copy", "transpose", "nchwtonhwc",
+                                 "nhwctonchw", "permute", "contiguous"))]
+    assert kernels and not layout, layout
+    assert spans["convnext.dwconv"]["calls"] == 36
+    assert spans["convnext.mlp"]["calls"] == 36
+    assert spans["convnext.norm"]["calls"] == 44
