@@ -4,6 +4,7 @@
 def launch_counters() -> dict:
     """Each kernel wrapper of the port by name; each carries ``launches``,
     the count of its kernel's launches."""
+    from basi_tpu_torch.kernels.bn_apply import bn_apply, bn_input_gradient
     from basi_tpu_torch.kernels.bn_stats import (
         channel_dual_sums,
         channel_moments,
@@ -20,4 +21,6 @@ def launch_counters() -> dict:
             "upsample_sigmoid": upsample_sigmoid,
             "normalize_and_flip": normalize_and_flip,
             "channel_moments": channel_moments,
-            "channel_dual_sums": channel_dual_sums}
+            "channel_dual_sums": channel_dual_sums,
+            "bn_apply": bn_apply,
+            "bn_input_gradient": bn_input_gradient}

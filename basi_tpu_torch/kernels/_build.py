@@ -46,6 +46,15 @@ SIGNATURES = {
         "basi_channel_dual_sums_bf16", "basi_channel_dual_sums_f32")},
     # dual, f32, blocks (out)
     "basi_bn_stats_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),
+    # x, a, b, y, rows, c, threads along C, row lanes, blocks, vec, stream
+    **{name: (_P,) * 4 + (ctypes.c_longlong,) + (_I,) * 5 + (_P,)
+       for name in ("basi_bn_apply_bf16", "basi_bn_apply_f32")},
+    # g, x, mean, a, a_mg, a_inv_mgxn, dx, then as the apply
+    **{name: (_P,) * 7 + (ctypes.c_longlong,) + (_I,) * 5 + (_P,)
+       for name in ("basi_bn_input_grad_bf16", "basi_bn_input_grad_f32")},
+    # grad, f32, vec, threads, blocks (out)
+    "basi_bn_apply_blocks_per_sm": (_I, _I, _I, _I,
+                                    ctypes.POINTER(ctypes.c_int)),
 }
 
 _lock = threading.Lock()

@@ -16,10 +16,12 @@ backward ("stats", ``batch_moments``): only the moments have a hand-written
            is a plain expression that autograd differentiates.
 
 In mode "fused" the kernels compute every per-channel term in their last
-block (``bn_forward_terms``, ``bn_backward_terms``): one launch each way, and
-here only the two elementwise passes over x remain. In mode "stats" the
-kernel returns the means (``channel_means``) and the rest is
-``bn_forward_math`` in plain tensor operations.
+block (``bn_forward_terms``, ``bn_backward_terms``), and the two elementwise
+passes over x are kernels too (``kernels/bn_apply.py``: ``bn_apply``,
+``bn_input_gradient``): two launches each way, the same values bit for bit
+as the plain passes. In mode "stats" the kernel returns the means
+(``channel_means``) and the rest is ``bn_forward_math`` and the plain apply
+in tensor operations, which autograd differentiates.
 
 The one-pass variance is what the TPU kernel feeds, and it is mirrored:
 where a channel's mean dwarfs its spread it cancels in f32, as the JAX
@@ -34,6 +36,11 @@ from __future__ import annotations
 
 import torch
 
+from basi_tpu_torch.kernels.bn_apply import (
+    bn_apply,
+    bn_apply_reference,
+    bn_input_gradient,
+)
 from basi_tpu_torch.kernels.bn_stats import (
     bn_backward_terms,
     bn_forward_math,
@@ -55,26 +62,13 @@ def _count(x: torch.Tensor) -> int:
     return x.shape[0] * x.shape[2] * x.shape[3]
 
 
-def _apply(x, a, b):
-    """y = x*a + b in f32 (a and b per channel), cast to x's dtype once."""
-    return (x * _per_channel(a)).add_(_per_channel(b)).to(x.dtype)
-
-
-def _input_gradient(gy, x, mean, a, a_mg, a_inv_mgxn):
-    """dx = a*g - a*m_g - (a*inv*m_gxn)*(x - mean) in f32, cast once."""
-    dx = gy * _per_channel(a)
-    dx.sub_(_per_channel(a_mg))
-    xc = (x - _per_channel(mean)).mul_(_per_channel(a_inv_mgxn))
-    return dx.sub_(xc).to(x.dtype)
-
-
 class _BNTrainApply(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
         mean, var, inv, a, b = bn_forward_terms(_nhwc(x), scale, bias, eps)
         ctx.save_for_backward(x, scale, mean, inv)
         ctx.mark_non_differentiable(mean, var)
-        return _apply(x, a, b), mean, var
+        return bn_apply(x, a, b), mean, var
 
     @staticmethod
     def backward(ctx, gy, _g_mean, _g_var):
@@ -82,7 +76,7 @@ class _BNTrainApply(torch.autograd.Function):
         x, scale, mean, inv = ctx.saved_tensors
         dscale, dbias, a, a_mg, a_inv_mgxn = bn_backward_terms(
             _nhwc(gy), _nhwc(x), scale, mean, inv)
-        dx = _input_gradient(gy, x, mean, a, a_mg, a_inv_mgxn)
+        dx = bn_input_gradient(gy, x, mean, a, a_mg, a_inv_mgxn)
         return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None
 
 
@@ -137,7 +131,7 @@ class FusedBatchNorm(BatchNorm2d):
         if self.mode == "stats":
             mean, var, _, a, b = bn_forward_math(
                 *batch_moments(x), weight, bias, self.eps)
-            y = _apply(x, a, b)
+            y = bn_apply_reference(x, a, b)
         else:
             y, mean, var = bn_train_apply(x, weight, bias, self.eps)
         if self.keeps_stats:

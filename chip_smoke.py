@@ -47,6 +47,12 @@
    (16 loads in flight, no last block, launch only: ``BN_VARIANTS``), and
    the host's time to enqueue one call of each BN entry point and of the
    library calls (``sweep_bn_layout``): what the design was chosen from.
+   Between the two, the BatchNorm's elementwise passes (``bn_apply``,
+   ``bn_input_gradient``) at the 12 shapes at batch 64, on the epilogues'
+   terms: bit for bit equal to their plain versions and over two
+   launches, timed cold beside the plain version, their bound (4 and 6
+   bytes an element) and ``torch.batch_norm_elemt`` /
+   ``torch.batch_norm_backward_elemt`` (``check_bn_apply_kernels``).
 3. Drives the serving path at full width: preset ``val_v4-8_ap`` (ResNet-50,
    512^2, bf16, batch 8) with seeded random weights, objectness bias 0 and
    non-trivial BN stats. A ``BatchedPredictor`` answers 16 concurrent
@@ -65,8 +71,9 @@
    ``model.bn_impl``: ``Trainer.train`` runs 4 steps of ``xla``, 4 of
    ``fused`` and 2 of ``stats``. Every step must launch
    ``normalize_and_flip`` once and ``upsample_int`` forward and backward 9
-   times each, and per step 53 ``channel_moments`` and 53
-   ``channel_dual_sums`` (fused), 53 and 0 (stats), none (xla); the loss
+   times each, and per step 53 ``channel_moments``, 53
+   ``channel_dual_sums``, 53 ``bn_apply`` and 53 ``bn_input_gradient``
+   (fused), 53 ``channel_moments`` alone (stats), none (xla); the loss
    and metrics must be finite, and params, EMA and BN running statistics
    must move. ``Trainer`` and ``BatchedPredictor`` (phase 3) are called
    without a device: their default is the card. Then one repeated batch
@@ -236,7 +243,7 @@
 
 Any failure raises and exits non-zero; so does a machine without CUDA or
 a directory without the package. The line before the last is the
-kernels' JSON record, ``{"kernels": [...]}``, one entry for each of the six
+kernels' JSON record, ``{"kernels": [...]}``, one entry for each of the eight
 kernels with ``name``, ``route`` ("cuda"), ``source`` (its ``.cu`` file),
 ``replaces`` (the TPU kernel's file:line), ``launches`` (on its path:
 ``upsample_int``, its backward and ``normalize_and_flip`` over the 4
@@ -248,13 +255,15 @@ none are left out), ``max_abs_err`` (against its plain
 version) and, per forward or step (nine ``upsample_int`` calls of a
 serving forward, nine backward calls and one ``normalize_and_flip`` of a
 training step, one ``upsample_sigmoid`` call, 53 calls of each BN
-kernel), ``ms`` and ``plain_ms`` (CUDA events), ``device_ms`` (the
-kernels run back to back, no host time), ``bound_ms`` and
+kernel: ``bn_stats``'s at batch 16, the elementwise passes' at 64),
+``ms`` and ``plain_ms`` (CUDA events), ``device_ms`` (the kernels run
+back to back, no host time), ``bound_ms`` and
 ``bound_by`` (compulsory bytes over 3.35 TB/s or f32 operations over 67
 TFLOP/s, the larger, from this run's inputs) and ``library_ms`` (the one
 PyTorch call that computes the same function: ``F.interpolate``, its
 backward ``upsample_bilinear2d_backward``, ``torch.batch_norm_stats``,
-``torch.batch_norm_backward_reduce``; null where there is none). The last
+``torch.batch_norm_backward_reduce``, ``torch.batch_norm_elemt``,
+``torch.batch_norm_backward_elemt``; null where there is none). The last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -657,8 +666,8 @@ def check_bn_kernels(dev, gen):
     the 12 BN shapes of a ResNet-50 step (bf16) and two in f32, the sums and
     the three BN epilogues; returns the per-step records (53 calls each)
     of the two sums, with the epilogues' totals printed."""
+    from basi_tpu_torch.kernels import bn_apply as A
     from basi_tpu_torch.kernels import bn_stats as B
-    from basi_tpu_torch.models import norm as BN
 
     recs = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                 "library_ms": 0.0, "max_abs_err": 0.0, "bytes": 0.0,
@@ -766,17 +775,19 @@ def check_bn_kernels(dev, gen):
                              ("plain_ms", plain), ("bytes", io_bytes),
                              ("flops", flops)):
                     r[k] += layers * v
-        # the module's elementwise passes on them
+        # the module's elementwise kernels on them, against the plain
+        # passes on the plain terms
         xn, gn = _nchw(xs[0]), _nchw(gs[0])
         fwd, bwd = got_terms["bn_forward_terms"], got_terms["bn_backward_terms"]
         want_bwd = terms["bn_backward_terms"][3]
-        _require(_bf16_ulp_ok(BN._apply(xn, *fwd[3:]),
-                              BN._apply(xn, *want_fwd[3:])),
+        _require(_bf16_ulp_ok(A.bn_apply(xn, *fwd[3:]),
+                              A.bn_apply_reference(xn, *want_fwd[3:])),
                  f"({BN_BATCH}x{hw}, {c}) {dtype}: y beyond 1 bf16 ulp")
-        _require(_bf16_sum_ok(BN._input_gradient(gn, xn, mean, *bwd[2:]),
-                              BN._input_gradient(gn, xn, mean, *want_bwd[2:])),
-                 f"({BN_BATCH}x{hw}, {c}) {dtype}: dx beyond 1 bf16 ulp + "
-                 "2^-20 of the largest")
+        _require(_bf16_sum_ok(
+            A.bn_input_gradient(gn, xn, mean, *bwd[2:]),
+            A.bn_input_gradient_reference(gn, xn, mean, *want_bwd[2:])),
+            f"({BN_BATCH}x{hw}, {c}) {dtype}: dx beyond 1 bf16 ulp + "
+            "2^-20 of the largest")
         print(f"epilogues ({BN_BATCH}x{hw}, {c}) {dtype}: {'; '.join(line)}; "
               "y within 1 bf16 ulp, dx within 1 bf16 ulp + 2^-20 max, "
               "repeat bit for bit")
@@ -796,6 +807,108 @@ def check_bn_kernels(dev, gen):
               f"against {r['library_ms']:.4f} ms "
               f"({'faster' if r['ms'] < r['library_ms'] else 'not faster'})")
     return recs["channel_moments"], recs["channel_dual_sums"]
+
+
+# the batch of the elementwise passes' step: the benchmark's (64)
+BN_APPLY_BATCH = 64
+
+
+def check_bn_apply_kernels(dev, gen):
+    """Phase 2, the fused BatchNorm's elementwise passes: ``bn_apply`` and
+    ``bn_input_gradient`` at the 12 BN shapes of a ResNet-50 step at batch
+    64 (bf16), on the terms of the ``bn_stats`` epilogues: bit for bit
+    equal to their plain versions and over two launches; then each timed
+    cold (CUDA events and device time), beside the plain version, the
+    bound (4 and 6 bytes an element over 3.35 TB/s) and the library's
+    ``torch.batch_norm_elemt`` / ``torch.batch_norm_backward_elemt`` (a
+    yardstick; the port never calls them). Returns the per-step records
+    (53 calls each)."""
+    from basi_tpu_torch.kernels import bn_apply as A
+    from basi_tpu_torch.kernels import bn_stats as B
+
+    recs = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "max_abs_err": 0.0, "bytes": 0.0,
+                "flops": 0.0} for k in ("bn_apply", "bn_input_gradient")}
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+    for (hw, c), layers in BN_SHAPES:
+        side = math.isqrt(hw)
+        shape = (BN_APPLY_BATCH, side, side, c)
+        x = torch.randn(shape, generator=dgen, device=dev).mul_(2).add_(0.5)
+        g = torch.randn(shape, generator=dgen, device=dev)
+        xs = [_nchw(t) for t in _copies(x.to(torch.bfloat16))]
+        gs = [_nchw(t) for t in _copies(g.to(torch.bfloat16))]
+        del x, g
+        scale = torch.linspace(0.5, 1.5, c, device=dev)
+        bias = torch.linspace(-1.0, 1.0, c, device=dev)
+        mean, _, inv, a, b = B.bn_forward_terms(
+            xs[0].permute(0, 2, 3, 1), scale, bias, 1e-5)
+        _, sg, _, a_mg, k = B.bn_backward_terms(
+            gs[0].permute(0, 2, 3, 1), xs[0].permute(0, 2, 3, 1), scale,
+            mean, inv)
+        sgxmu = B.channel_dual_sums(gs[0].permute(0, 2, 3, 1),
+                                    xs[0].permute(0, 2, 3, 1))[1] - mean * sg
+        count = torch.full((1,), xs[0].numel() // c, dtype=torch.int32,
+                           device=dev)
+        n = xs[0].numel()
+        cases = {
+            # the library: (x - mean) * inv * scale + bias, the same y
+            "bn_apply": (A.bn_apply, A.bn_apply_reference,
+                         [(x, a, b) for x in xs], torch.batch_norm_elemt,
+                         [(x, scale, bias, mean, inv, 1e-5) for x in xs],
+                         4 * n + 8 * c, 2 * n),
+            "bn_input_gradient": (
+                A.bn_input_gradient, A.bn_input_gradient_reference,
+                [(g, x, mean, a, a_mg, k) for g, x in zip(gs, xs)],
+                torch.batch_norm_backward_elemt,
+                [(g, x, mean, inv, scale, sg, sgxmu, count)
+                 for g, x in zip(gs, xs)],
+                6 * n + 16 * c, 5 * n)}
+        line = []
+        for name, (fn, plain_fn, args, lib_fn, lib_args, io_bytes,
+                   flops) in cases.items():
+            got, again = fn(*args[0]), fn(*args[0])
+            want = plain_fn(*args[0])
+            torch.cuda.synchronize()
+            what = f"{name} ({BN_APPLY_BATCH}x{hw}, {c}) bf16"
+            err = float((got.float() - want.float()).abs().max())
+            _require(torch.equal(got, want), f"{what}: not bit for bit "
+                     f"equal to the plain version (max diff {err})")
+            _require(torch.equal(got, again), f"{what}: two launches differ")
+            del got, again, want
+            ms = _time_cold_ms(fn, args)
+            dev_ms = _device_ms(fn, args)
+            plain = _time_cold_ms(plain_fn, args)
+            try:
+                lib = _time_cold_ms(lib_fn, lib_args)
+            except (RuntimeError, TypeError) as e:
+                print(f"{what}: library call refused ({e})")
+                lib = float("nan")
+            bound, _ = _bound(io_bytes, flops)
+            line.append(f"{name} {ms:.4f} ms ({dev_ms:.4f} device, "
+                        f"{100 * bound / dev_ms:.0f}% of the bound "
+                        f"{bound:.4f}), plain {plain:.4f}, library "
+                        f"{lib:.4f}, host enqueue "
+                        f"{_enqueue_us(lambda: fn(*args[0])):.1f} us (plain "
+                        f"{_enqueue_us(lambda: plain_fn(*args[0]), 20):.1f})")
+            r = recs[name]
+            for key, v in (("ms", ms), ("device_ms", dev_ms),
+                           ("plain_ms", plain), ("library_ms", lib),
+                           ("bytes", io_bytes), ("flops", flops)):
+                r[key] += layers * v
+        print(f"({BN_APPLY_BATCH}x{hw}, {c}) bf16, {layers} layers, equal "
+              f"to the plain passes bit for bit: {'; '.join(line)}")
+        del xs, gs, cases
+        torch.cuda.empty_cache()
+    for name, r in recs.items():
+        bound = _bound(r["bytes"], r["flops"])[0]
+        print(f"{name}, one step's 53 calls at batch {BN_APPLY_BATCH} "
+              f"(bf16), cold: kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} "
+              f"device, {100 * bound / r['device_ms']:.1f}% of the bound), "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"ms, bound {bound:.4f} ms ({r['bytes'] / 1e9:.3f} GB)")
+        if math.isnan(r["library_ms"]):
+            r["library_ms"] = None
+    return recs["bn_apply"], recs["bn_input_gradient"]
 
 
 # (masks, h, w) of upsample_sigmoid's calls on the path, to 512^2: the
@@ -1268,7 +1381,8 @@ def check_serving_bn_impl(cfg, sd, dev, xla_inf, batch) -> None:
         got, want = inf.apply_model(batch), xla_inf.apply_model(batch)
     torch.cuda.synchronize()
     n = _kernel_counts()
-    _require(n["channel_moments"] == n["channel_dual_sums"] == 0,
+    _require(n["channel_moments"] == n["channel_dual_sums"] == n["bn_apply"]
+             == n["bn_input_gradient"] == 0,
              f"eval mode launched a BatchNorm kernel: {n}")
     _require(all(torch.equal(getattr(got, k), getattr(want, k)) for k in
                  ("saliency_logits", "cell_scores", "cell_kernels",
@@ -1310,7 +1424,9 @@ PER_STEP = {
     impl: {"upsample_int": 9, "upsample_int_bwd": 9, "upsample_sigmoid": 0,
            "normalize_and_flip": 1,
            "channel_moments": BN_LAYERS if impl != "xla" else 0,
-           "channel_dual_sums": BN_LAYERS if impl == "fused" else 0}
+           "channel_dual_sums": BN_LAYERS if impl == "fused" else 0,
+           "bn_apply": BN_LAYERS if impl == "fused" else 0,
+           "bn_input_gradient": BN_LAYERS if impl == "fused" else 0}
     for impl in PATH_STEPS}
 TIMED_FROM, WINDOW = 5, 10
 TIMED_ORDER = ("xla", "fused", "stats", "stats", "fused", "xla")
@@ -1489,6 +1605,7 @@ PROFILED_STEPS = 3
 # kernel's name holds
 KERNEL_CLASSES = [
     ("bn_stats (ours)", ("bn_stats",)),
+    ("bn_apply and bn_input_gradient (ours)", ("basi_bn_",)),
     ("upsample_int and its backward (ours)", ("upsample_int",)),
     ("normalize_and_flip (ours)", ("normalize_flip",)),
     ("BatchNorm (framework)", ("batch_norm",)),
@@ -1589,16 +1706,20 @@ def per_step_launches(cfg, bns: int = BN_LAYERS) -> dict:
     BatchNorms): per micro-batch one ``normalize_and_flip``, and in bf16
     nine ``upsample_int`` and nine backward; under ``bn_impl`` fused or
     stats one ``channel_moments`` a BatchNorm (two under remat: the
-    recompute), and under fused one ``channel_dual_sums``; none of these
-    when the trunk is frozen."""
+    recompute), and under fused one ``channel_dual_sums``, one
+    ``bn_apply`` (two under remat) and one ``bn_input_gradient``; none of
+    these when the trunk is frozen."""
     t, impl = cfg.train, cfg.model.bn_impl
     ups = 9 if cfg.model.dtype == "bfloat16" else 0
     bn = 0 if t.freeze_bn or impl == "xla" else bns
+    fused = bn if impl == "fused" else 0
     return {k: v * t.grad_accum for k, v in {
         "upsample_int": ups, "upsample_int_bwd": ups, "upsample_sigmoid": 0,
         "normalize_and_flip": 1,
         "channel_moments": bn * (2 if t.remat else 1),
-        "channel_dual_sums": bn if impl == "fused" else 0}.items()}
+        "channel_dual_sums": fused,
+        "bn_apply": fused * (2 if t.remat else 1),
+        "bn_input_gradient": fused}.items()}
 
 
 def check_f32_step(dev, bn_impl: str, overrides=(), label: str = ""):
@@ -3839,6 +3960,7 @@ def main() -> int:
     sweep_ingest_kernels(dev, gen)
     time_enqueue(dev, gen)
     cm, cds = check_bn_kernels(dev, gen)
+    ba, big = check_bn_apply_kernels(dev, gen)
     sweep_bn_layout(dev, gen)
 
     cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"])
@@ -3897,7 +4019,9 @@ def main() -> int:
                        ("upsample_int_bwd", "xla"),
                        ("normalize_and_flip", "xla"),
                        ("channel_moments", "fused"),
-                       ("channel_dual_sums", "fused")):
+                       ("channel_dual_sums", "fused"),
+                       ("bn_apply", "fused"),
+                       ("bn_input_gradient", "fused")):
         _require(roi_launches[path][name] > 0,
                  f"roi {path}: {name} never launched")
 
@@ -3921,7 +4045,13 @@ def main() -> int:
              train_launches["fused"]["channel_moments"]),
             ("channel_dual_sums", "basi_tpu_torch/csrc/bn_stats.cu",
              "basi_tpu/ops/pallas/bn_stats.py:113", cds,
-             train_launches["fused"]["channel_dual_sums"])]
+             train_launches["fused"]["channel_dual_sums"]),
+            ("bn_apply", "basi_tpu_torch/csrc/bn_apply.cu",
+             "basi_tpu/models/norm.py:76 (XLA-fused; no Pallas kernel)", ba,
+             train_launches["fused"]["bn_apply"]),
+            ("bn_input_gradient", "basi_tpu_torch/csrc/bn_apply.cu",
+             "basi_tpu/models/norm.py:102 (XLA-fused; no Pallas kernel)", big,
+             train_launches["fused"]["bn_input_gradient"])]
     kernels = []
     for name, src, rep, r, n in rows:
         bound, by = _bound(r["bytes"], r["flops"])

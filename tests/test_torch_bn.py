@@ -21,7 +21,11 @@ the JAX side and NCHW in ``channels_last`` memory on the port's. Tolerances:
   ``rtol=3e-4, atol=1e-4`` (dscale, dbias, dx: sums of up to 512 terms
   that cancel); in float64 ``1e-10``, both sides in float64 (the JAX
   functions read ``jnp.float32`` as float64 for the test, as in
-  ``test_torch_train.py``).
+  ``test_torch_train.py``);
+* the elementwise passes on those terms (``bn_apply``,
+  ``bn_input_gradient``, whose plain versions run here) against y of
+  ``_bn_fwd_math`` and dx of ``_bn_bwd``, with the tolerances of the
+  terms they apply.
 
 Both sides take the one-pass variance E[x^2] - E[x]^2 that the TPU kernel
 feeds. In f32 it cancels where a channel's mean dwarfs its spread, and the
@@ -45,6 +49,7 @@ from basi_tpu.models import norm as jax_norm
 from basi_tpu.models.norm import FusedBatchNorm as JaxFusedBatchNorm
 from basi_tpu.ops.pallas import bn_stats as jax_bn
 from basi_tpu_torch.convert import load_jax_variables, to_jax_variables
+from basi_tpu_torch.kernels import bn_apply as A
 from basi_tpu_torch.kernels import bn_stats as K
 from basi_tpu_torch.models import norm as N
 from basi_tpu_torch.models.basi import create_model
@@ -188,10 +193,80 @@ def test_bn_backward_terms_plain_matches_jax(shape, dtype, monkeypatch):
     dscale, dbias, a, a_mg, a_inv_mgxn = K.bn_backward_terms(
         gy_t, x_t, torch.from_numpy(scale), mean, inv)
     assert K.channel_dual_sums.launches == n0
-    dx = N._input_gradient(gy_t.permute(0, 3, 1, 2), x_t.permute(0, 3, 1, 2),
-                           mean, a, a_mg, a_inv_mgxn).permute(0, 2, 3, 1)
+    dx = A.bn_input_gradient(gy_t.permute(0, 3, 1, 2),
+                             x_t.permute(0, 3, 1, 2), mean, a, a_mg,
+                             a_inv_mgxn).permute(0, 2, 3, 1)
     _close_terms((dscale, dbias, dx), (dscale_j, dbias_j, dx_j),
                  TERM_TOL[dtype][1], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bn_apply_plain_matches_jax(shape, dtype, monkeypatch):
+    """``bn_apply`` (its plain version on the CPU) on the terms of
+    ``bn_forward_terms``, channels_last, against y of ``_bn_fwd_math``."""
+    x, _, scale, bias = _terms_case(shape, dtype, monkeypatch)
+    with jax.enable_x64(dtype == "float64"):
+        y_j = jax_norm._bn_fwd_math(jnp.asarray(x), jnp.asarray(scale),
+                                    jnp.asarray(bias), None, 1e-5)[0]
+    _, _, _, a, b = K.bn_forward_terms(
+        torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
+        1e-5)
+    xn = _nchw(x)
+    n0 = A.bn_apply.launches
+    y = A.bn_apply(xn, a, b)
+    assert A.bn_apply.launches == n0  # the CPU runs no kernel
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, A.bn_apply_reference(xn, a, b))
+    _close_terms((y.permute(0, 2, 3, 1),), (y_j,), TERM_TOL[dtype][0], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bn_input_gradient_plain_matches_jax(shape, dtype, monkeypatch):
+    """``bn_input_gradient`` (its plain version on the CPU) on the terms
+    of ``bn_backward_terms``, channels_last, against dx of ``_bn_bwd``;
+    the gradient it reads is left as it was."""
+    x, gy, scale, bias = _terms_case(shape, dtype, monkeypatch)
+    with jax.enable_x64(dtype == "float64"):
+        xj, sj = jnp.asarray(x), jnp.asarray(scale)
+        _, mean, _, inv = jax_norm._bn_fwd_math(xj, sj, jnp.asarray(bias),
+                                                None, 1e-5)
+        dx_j = jax_norm._bn_bwd(None, 1e-5, (xj, sj, mean, inv),
+                                (jnp.asarray(gy), None, None))[0]
+    mean, inv = (torch.from_numpy(np.array(v)) for v in (mean, inv))
+    terms = K.bn_backward_terms(torch.from_numpy(gy), torch.from_numpy(x),
+                                torch.from_numpy(scale), mean, inv)[2:]
+    gn, xn = _nchw(gy), _nchw(x)
+    g0 = gn.clone()
+    n0 = A.bn_input_gradient.launches
+    dx = A.bn_input_gradient(gn, xn, mean, *terms)
+    assert A.bn_input_gradient.launches == n0
+    assert torch.equal(gn, g0)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(dx, A.bn_input_gradient_reference(gn, xn, mean, *terms))
+    _close_terms((dx.permute(0, 2, 3, 1),), (dx_j,), TERM_TOL[dtype][1], dtype)
+
+
+def test_bn_apply_layout_and_checks():
+    """The kernels' launch layout (threads along C, row lanes, blocks over
+    rows) for at most 1056 blocks (132 SMs x 8), and the wrappers' shape
+    checks, which hold on the CPU too."""
+    # bf16 vectors of 8 channels: the stem at batch 64, layer4's widest,
+    # f32 vectors of 4 at 2048 channels (two tiles), 2050 channels by
+    # scalars (nine even tiles), 24 channels of 15 rows (one block)
+    assert A.launch_layout(64 * 65536, 64, 8, 1056) == (8, 32, 1056)
+    assert A.launch_layout(64 * 256, 2048, 8, 1056) == (256, 1, 1056)
+    assert A.launch_layout(10, 2048, 4, 1056) == (256, 1, 10)
+    assert A.launch_layout(5, 2050, 1, 1056) == (228, 1, 5)
+    assert A.launch_layout(15, 24, 8, 1056) == (3, 85, 1)
+    x = torch.zeros(2, 8, 3, 3)
+    with pytest.raises(ValueError, match="NCHW"):
+        A.bn_apply(torch.zeros(8, 3, 3), torch.ones(8), torch.zeros(8))
+    with pytest.raises(ValueError, match="does not match"):
+        A.bn_input_gradient(x.double(), x, *[torch.zeros(8)] * 4)
+    with pytest.raises(ValueError, match="does not match"):
+        A.bn_input_gradient(x[:1], x, *[torch.zeros(8)] * 4)
 
 
 # --- the module ------------------------------------------------------------------

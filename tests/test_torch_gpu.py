@@ -18,9 +18,12 @@ within ``1e-5 * sum |term|`` per channel of the plain version (f32 sums of
 up to a million terms taken in another order) and bit-equal from one launch
 to the next (an atomic ticket only elects the block that sums the partials,
 in a fixed order); their BatchNorm epilogues within 1e-5 of each term's
-largest magnitude of the plain math on the same sums; ``FusedBatchNorm`` on
-the card within 1e-4 of the same module on the CPU. TF32 is off, so the
-plain versions' f32 matmuls run in full f32.
+largest magnitude of the plain math on the same sums; ``bn_apply`` and
+``bn_input_gradient`` bit-exact against their plain versions on those terms
+(the same f32 operations in the same order, no FMA, one rounding), and so
+``FusedBatchNorm``'s y, dx, dscale and dbias against the plain passes;
+``FusedBatchNorm`` on the card within 1e-4 of the same module on the CPU.
+TF32 is off, so the plain versions' f32 matmuls run in full f32.
 
 Evaluation on the card against the CPU: the paste within 1e-6, each
 saliency metric within 1e-5 and the EDT bit for bit; the Gaussian and the
@@ -74,6 +77,7 @@ import numpy as np
 import pytest
 import torch
 
+from basi_tpu_torch.kernels import bn_apply as A
 from basi_tpu_torch.kernels import bn_stats as B
 from basi_tpu_torch.kernels import normalize_aug as N
 from basi_tpu_torch.kernels import upsample_int as U
@@ -441,8 +445,6 @@ def test_gpu_bn_term_epilogues_match_plain(rng, shape, dtype):
     plain version; two launches bit for bit equal; and the module's
     elementwise passes on them: y within 1 bf16 ulp, dx within 1 bf16 ulp
     plus 2^-20 of its largest magnitude (its three terms cancel)."""
-    from basi_tpu_torch.models import norm as BN
-
     dev = _cuda()
     x = _nhwc(rng, shape, dtype, dev, loc=0.5)
     g = _nhwc(rng, shape, dtype, dev)
@@ -475,11 +477,13 @@ def test_gpu_bn_term_epilogues_match_plain(rng, shape, dtype):
                       (gf.abs().sum((0, 1, 2)),
                        (gf * xf).abs().sum((0, 1, 2))), f"{shape}")
     xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-    assert_within_bf16_ulp(BN._apply(xn, *fwd[3:]), BN._apply(xn, *plain_fwd[3:]),
+    assert_within_bf16_ulp(A.bn_apply_reference(xn, *fwd[3:]),
+                           A.bn_apply_reference(xn, *plain_fwd[3:]),
                            f"y {shape}")
-    assert_within_bf16_sum(BN._input_gradient(gn, xn, mean, *bwd[2:]),
-                           BN._input_gradient(gn, xn, mean, *plain_bwd[2:]),
-                           f"dx {shape}")
+    assert_within_bf16_sum(
+        A.bn_input_gradient_reference(gn, xn, mean, *bwd[2:]),
+        A.bn_input_gradient_reference(gn, xn, mean, *plain_bwd[2:]),
+        f"dx {shape}")
 
 
 @pytest.mark.gpu
@@ -567,6 +571,148 @@ def test_gpu_bn_stats_refuse_what_the_kernel_cannot_take():
     assert empty[0].shape == (16,) and not empty[0].any()
 
 
+def _nhwc_view(t: torch.Tensor) -> torch.Tensor:
+    """The NHWC view of an NCHW tensor in channels_last memory."""
+    return t.permute(0, 2, 3, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", BN_TERM_CASES)
+def test_gpu_bn_apply_kernels_equal_plain_bit_for_bit(rng, shape, dtype):
+    """``bn_apply`` and ``bn_input_gradient`` on the terms of the
+    ``bn_stats`` epilogues equal their plain versions on the same tensors
+    bit for bit, and two launches each other; each call counts one launch;
+    the output keeps x's dtype and channels_last layout; g is not
+    written."""
+    dev = _cuda()
+    xn = _nhwc(rng, shape, dtype, dev, loc=0.5).permute(0, 3, 1, 2)
+    gn = _nhwc(rng, shape, dtype, dev).permute(0, 3, 1, 2)
+    scale, bias = _bn_params(shape[-1], dev)
+    mean, _, inv, a, b = B.bn_forward_terms(_nhwc_view(xn), scale, bias, 1e-5)
+    terms = B.bn_backward_terms(_nhwc_view(gn), _nhwc_view(xn), scale, mean,
+                                inv)[2:]
+    g0 = gn.clone()
+    n0 = (A.bn_apply.launches, A.bn_input_gradient.launches)
+    y, y2 = A.bn_apply(xn, a, b), A.bn_apply(xn, a, b)
+    assert A.bn_apply.launches == n0[0] + 2
+    dx, dx2 = (A.bn_input_gradient(gn, xn, mean, *terms) for _ in range(2))
+    assert A.bn_input_gradient.launches == n0[1] + 2
+    torch.cuda.synchronize()
+    for got, again, want in (
+            (y, y2, A.bn_apply_reference(xn, a, b)),
+            (dx, dx2, A.bn_input_gradient_reference(gn, xn, mean, *terms))):
+        assert got.dtype == dtype and got.shape == xn.shape
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, again), f"{shape}: two launches differ"
+        err = float((got.float() - want.float()).abs().max())
+        assert torch.equal(got, want), f"{shape}: max diff {err}"
+    assert torch.equal(gn, g0), "g was written"
+
+
+@pytest.mark.gpu
+def test_gpu_bn_apply_kernels_launch_one_device_kernel_per_call(rng):
+    """``torch.profiler``: five calls of each wrapper run five device
+    kernels, no copy and no fill, whose names the benchmark's trace
+    (``perfbench/harness/trace.py``) files under no class of its own: not
+    ``bn_stats`` (the stats kernels' roofline) nor ``batch_norm``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.harness.trace import kernel_class
+
+    dev = _cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        xn = _nhwc(rng, (16, 64, 64, 256), dtype, dev, loc=0.5).permute(
+            0, 3, 1, 2)
+        gn = _nhwc(rng, (16, 64, 64, 256), dtype, dev).permute(0, 3, 1, 2)
+        t = [torch.linspace(0.5, 1.5, 256, device=dev) for _ in range(4)]
+        calls = {"bn_apply": lambda: A.bn_apply(xn, t[0], t[1]),
+                 "bn_input_gradient": lambda: A.bn_input_gradient(gn, xn, *t)}
+        for name, fn in calls.items():
+            fn()  # the plan exists before the profile
+            torch.cuda.synchronize()
+            # spinning kernels around the calls: a short profile on the
+            # card can come back without its first or last few kernels
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    torch.cuda._sleep(100_000)
+                for _ in range(5):
+                    fn()
+                for _ in range(3):
+                    torch.cuda._sleep(100_000)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            kernels = [k for k in names if "spin" not in k.lower()]
+            assert len(kernels) == 5 and all(
+                "basi_bn_" in k and kernel_class(k) == "other"
+                and "#" not in k for k in kernels), (name, dtype, names)
+
+
+@pytest.mark.gpu
+def test_gpu_bn_apply_refuses_what_the_kernel_cannot_take():
+    dev = _cuda()
+    x = torch.zeros(2, 16, 4, 4, device=dev, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    t = torch.ones(16, device=dev)
+    with pytest.raises(ValueError, match="channels_last"):
+        A.bn_apply(x.contiguous(), t, t)
+    with pytest.raises(ValueError, match="channels_last"):
+        A.bn_input_gradient(x.contiguous(), x.contiguous(), t, t, t, t)
+    with pytest.raises(ValueError, match="does not match"):
+        A.bn_input_gradient(x.float(), x, t, t, t, t)
+    with pytest.raises(ValueError, match="does not match"):
+        A.bn_input_gradient(x[:1], x, t, t, t, t)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        A.bn_apply(x.half(), t, t)
+    with pytest.raises(ValueError, match="per-channel"):
+        A.bn_apply(x, t.double(), t)
+    with pytest.raises(ValueError, match="per-channel"):
+        A.bn_apply(x, t.bfloat16(), t)
+    with pytest.raises(ValueError, match="per-channel"):
+        A.bn_input_gradient(x, x, t, t, torch.ones(32, device=dev)[::2], t)
+    with pytest.raises(ValueError, match="per-channel"):
+        A.bn_input_gradient(x, x, t, t, t, t[:8])
+    n0 = A.bn_apply.launches
+    assert A.bn_apply(x[:0], t, t).shape == (0, 16, 4, 4)
+    assert A.bn_apply.launches == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gpu_fused_batch_norm_full_equals_the_plain_passes(rng, dtype):
+    """``FusedBatchNorm(mode="full")`` on the card gives y, dx, dscale and
+    dbias bit for bit equal to the plain passes on the same tensors (the
+    path before the elementwise kernels), with one ``bn_apply`` and one
+    ``bn_input_gradient`` launch."""
+    from basi_tpu_torch.models.norm import FusedBatchNorm
+
+    dev = _cuda()
+    bn = FusedBatchNorm(128).to(dev)
+    with torch.no_grad():
+        bn.weight.copy_(torch.linspace(0.5, 1.5, 128))
+        bn.bias.copy_(torch.linspace(-1, 1, 128))
+    x = _nhwc(rng, (8, 32, 32, 128), dtype, dev, loc=0.5).permute(0, 3, 1, 2)
+    gy = _nhwc(rng, (8, 32, 32, 128), dtype, dev).permute(0, 3, 1, 2)
+    x.requires_grad_()
+    n0 = (A.bn_apply.launches, A.bn_input_gradient.launches)
+    y = bn(x, train=True)
+    y.backward(gy)
+    assert (A.bn_apply.launches - n0[0],
+            A.bn_input_gradient.launches - n0[1]) == (1, 1)
+    w, bias = bn.weight.detach(), bn.bias.detach()
+    xd = x.detach()
+    mean, _, inv, a, b = B.bn_forward_terms(_nhwc_view(xd), w, bias, bn.eps)
+    dscale, dbias, *terms = B.bn_backward_terms(
+        _nhwc_view(gy), _nhwc_view(xd), w, mean, inv)
+    for got, want in (
+            (y, A.bn_apply_reference(xd, a, b)),
+            (x.grad, A.bn_input_gradient_reference(gy, xd, mean, *terms)),
+            (bn.weight.grad, dscale), (bn.bias.grad, dbias)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["full", "stats"])
 def test_gpu_fused_batch_norm_matches_cpu(rng, mode):
@@ -574,7 +720,8 @@ def test_gpu_fused_batch_norm_matches_cpu(rng, mode):
     and bias on the card (the kernels) against the CPU (their plain
     versions): within 1e-4 relative to each tensor's largest magnitude;
     the launches are one channel_moments per forward and, in mode full,
-    one channel_dual_sums per backward."""
+    one channel_dual_sums per backward and one bn_apply and one
+    bn_input_gradient."""
     from basi_tpu_torch.models.layers import update_running_stats
     from basi_tpu_torch.models.norm import FusedBatchNorm
 
@@ -591,15 +738,17 @@ def test_gpu_fused_batch_norm_matches_cpu(rng, mode):
             bn.bias.copy_(torch.linspace(-1, 1, 64))
         x = x0.to(d).contiguous(memory_format=torch.channels_last)
         x.requires_grad_()
-        n0 = (B.channel_moments.launches, B.channel_dual_sums.launches)
+        counters = (B.channel_moments, B.channel_dual_sums, A.bn_apply,
+                    A.bn_input_gradient)
+        n0 = [f.launches for f in counters]
         y = bn(x, train=True)
         (torch.tanh(y) * w.to(d)).sum().backward()
         update_running_stats([bn])
-        n1 = (B.channel_moments.launches, B.channel_dual_sums.launches)
+        n1 = [f.launches for f in counters]
         if d != "cpu":
             torch.cuda.synchronize()
-            assert (n1[0] - n0[0], n1[1] - n0[1]) == (
-                1, 1 if mode == "full" else 0)
+            full = 1 if mode == "full" else 0
+            assert [b - a for a, b in zip(n0, n1)] == [1, full, full, full]
         out.append([t.detach().cpu() for t in (
             y, x.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
             bn.running_var)])
@@ -1319,9 +1468,10 @@ def test_gpu_multiscale_step_matches_cpu(overrides):
 def test_gpu_bn_kernel_launches_under_freeze_bn_and_remat(overrides,
                                                           per_step):
     """Under ``model.bn_impl=fused`` a step launches ``channel_moments`` and
-    ``channel_dual_sums`` once a BatchNorm each (17 in the tiny trunk); a
-    frozen trunk launches neither; remat's recompute launches the forward's
-    moments again (twice a BatchNorm) and the backward's sums once."""
+    ``channel_dual_sums`` once a BatchNorm each (17 in the tiny trunk), and
+    so ``bn_apply`` and ``bn_input_gradient``; a frozen trunk launches none;
+    remat's recompute launches the forward's moments and apply again (twice
+    a BatchNorm) and the backward's kernels once."""
     from basi_tpu_torch.models.basi import create_model
     from basi_tpu_torch.models.layers import BatchNorm2d
 
@@ -1331,6 +1481,9 @@ def test_gpu_bn_kernel_launches_under_freeze_bn_and_remat(overrides,
     bns = sum(isinstance(m, BatchNorm2d)
               for m in create_model(cfg.model, "cpu").modules())
     assert (counts["channel_moments"], counts["channel_dual_sums"]) == (
+        per_step[0] * bns, per_step[1] * bns), counts
+    # the elementwise passes go with the BatchNorm's forward and backward
+    assert (counts["bn_apply"], counts["bn_input_gradient"]) == (
         per_step[0] * bns, per_step[1] * bns), counts
     assert counts["normalize_and_flip"] == 1
     assert counts["upsample_int"] == counts["upsample_int_bwd"] == 0  # f32
