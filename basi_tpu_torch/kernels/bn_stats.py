@@ -68,33 +68,29 @@ def launch_layout(rows: int, c: int, itemsize: int,
     return g, -(-rows // slab), slab
 
 
-# (kernel, dtype, rows, C, device, blocks per SM) -> the launch plan, one for
-# every epilogue: an epilogue's sums are the plain sums' bit for bit
+# (kernel, dtype, rows, C, device) -> the launch plan, one for every
+# epilogue: an epilogue's sums are the plain sums' bit for bit
 _plans: dict = {}
 # (device, stream) -> (f32 workspace, u32 counters); a stream's launches run
 # in order, so they share them; the counters are 0 between launches
 _work: dict = {}
 
 
-def _plan(kind: str, x: torch.Tensor, rows: int, c: int,
-          per_sm: int | None = None):
+def _plan(kind: str, x: torch.Tensor, rows: int, c: int):
     """(entry point, g, slabs, rows per slab, workspace floats, counters)
-    of a launch on a grid of ``per_sm`` blocks per SM; by default as many
-    as an SM holds at once (``chip_smoke.py``'s sweep times others)."""
-    key = (kind, x.dtype, rows, c, x.device, per_sm)
+    of a launch on a grid of as many blocks as the card holds at once."""
+    key = (kind, x.dtype, rows, c, x.device)
     plan = _plans.get(key)
     if plan is None:
         lib = _build.library()
-        if per_sm is None:
-            held = ctypes.c_int(0)
-            _build.check(lib.basi_bn_stats_blocks_per_sm(
-                kind == "dual", x.dtype == torch.float32,
-                ctypes.byref(held)), "bn_stats occupancy")
-            per_sm = held.value
+        held = ctypes.c_int(0)
+        _build.check(lib.basi_bn_stats_blocks_per_sm(
+            kind == "dual", x.dtype == torch.float32,
+            ctypes.byref(held)), "bn_stats occupancy")
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         vec = 16 // x.element_size()
         g, parts, slab = launch_layout(rows, c, x.element_size(),
-                                       sms * max(1, per_sm))
+                                       sms * max(1, held.value))
         tiles = -(-c // (vec * g))
         # partial rows of 2 * g * vec floats: one a slab, one a group of
         # slabs; a counter a group and one a tile

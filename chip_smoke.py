@@ -22,15 +22,7 @@
    mixed flip flags), each of these two beside its bound and its output's
    write floor (``y.zero_()`` of the same size, device time), and
    ``torch.autograd.grad`` through ``resize_bilinear`` on the kernel
-   route against the plain route. Then the backward's device time built
-   with the other tilings of ``BWD_VARIANTS`` (``sweep_bwd_tiles``); the
-   two ingest kernels' device time built as they are and with the
-   variants of ``SIGMOID_VARIANTS`` and ``NORMALIZE_VARIANTS``, each bit
-   for bit equal to the built one, with ``ptxas``'s registers
-   (``sweep_ingest_kernels``, into ``build/sigmoid_variants/`` and
-   ``build/normalize_variants/``); and the host's time to enqueue one call
-   of each of the four older wrappers and to get the stream the old way
-   and the new (``time_enqueue``).
+   route against the plain route.
    ``channel_moments`` and ``channel_dual_sums`` at the 12 (H*W, C) of
    ResNet-50's 53 BatchNorms at 512^2, batch 16, bf16, and at two shapes in
    f32: per channel within ``1e-5 * sum |term|`` of the plain version (f32
@@ -42,17 +34,13 @@
    y and dx of the module's elementwise passes on them within 1 bf16 ulp
    (dx plus 2^-20 of its largest: its terms cancel). Their inputs rotate
    through copies larger than the L2 cache, so each call reads from device
-   memory as the step's would. Last, the BN kernels' device time at the 12
-   shapes on grids of 2 to 5 blocks per SM and built with other choices
-   (16 loads in flight, no last block, launch only: ``BN_VARIANTS``), and
-   the host's time to enqueue one call of each BN entry point and of the
-   library calls (``sweep_bn_layout``): what the design was chosen from.
-   Between the two, the BatchNorm's elementwise passes (``bn_apply``,
-   ``bn_input_gradient``) at the 12 shapes at batch 64, on the epilogues'
-   terms: bit for bit equal to their plain versions and over two
-   launches, timed cold beside the plain version, their bound (4 and 6
-   bytes an element) and ``torch.batch_norm_elemt`` /
-   ``torch.batch_norm_backward_elemt`` (``check_bn_apply_kernels``).
+   memory as the step's would. Last, the BatchNorm's elementwise passes
+   (``bn_apply``, ``bn_input_gradient``) at the 12 shapes at batch 64, on
+   the epilogues' terms: bit for bit equal to their plain versions and
+   over two launches, timed cold beside the plain version, their bound (4
+   and 6 bytes an element), ``torch.batch_norm_elemt`` /
+   ``torch.batch_norm_backward_elemt`` and the host's time to enqueue one
+   call (``check_bn_apply_kernels``).
 3. Drives the serving path at full width: preset ``val_v4-8_ap`` (ResNet-50,
    512^2, bf16, batch 8) with seeded random weights, objectness bias 0 and
    non-trivial BN stats. A ``BatchedPredictor`` answers 16 concurrent
@@ -77,20 +65,18 @@
    and metrics must be finite, and params, EMA and BN running statistics
    must move. ``Trainer`` and ``BatchedPredictor`` (phase 3) are called
    without a device: their default is the card. Then one repeated batch
-   per setting (``train.warmup_steps=0``, ``train.lr=0.0025``) must bring
-   the loss down (every loss of the second half below the first); after 5
-   steps the three are timed in turns (xla, fused, stats, stats, fused,
-   xla; 10 steps a window, CUDA events), then ``torch.profiler`` traces 3
-   more steps of each: device ms and launches per step by kernel class
-   (``bn_stats (ours)``: one launch a BN call), and the device's busy
-   share (the profile's device ms over the event step time); one more
-   ``xla`` step counts the upsample_int backward calls that receive a
-   cotangent that is not NHWC-contiguous and times their copies
-   (``strided_cotangents``). Last, the model at batch 4 takes one
-   forward and backward of the same batch in f32 on the card (TF32 off) in
-   each setting and in float64 on the CPU: each f32 loss within 2e-5 relative of the float64 one, each
-   f32 gradient within 5e-2 of it in norm (f32 gradients of the early
-   trunk layers are good to 1-2% at full width).
+   per setting (``train.warmup_steps=0``, ``train.lr=0.0025``, 28 steps)
+   must bring the loss down (every loss of the second half below the
+   first; ``repeated_batch_learns``); one more ``xla`` step counts the
+   upsample_int backward calls that receive a cotangent that is not
+   NHWC-contiguous and times their copies (``strided_cotangents``). The
+   step's speed and its breakdown are ``perfbench/``'s to measure
+   (``python3 perfbench/run.py --trace 1``). Last, the model at batch 4
+   takes one forward and backward of the same batch in f32 on the card
+   (TF32 off) in each setting and in float64 on the CPU: each f32 loss
+   within 2e-5 relative of the float64 one, each f32 gradient within 5e-2
+   of it in norm (f32 gradients of the early trunk layers are good to 1-2%
+   at full width).
 6. f32 step, card vs CPU: one train step of the tiny config (TF32 off) from
    the same weights and batch, for ``bn_impl`` xla and fused; loss and
    every gradient agree within 1e-3.
@@ -211,9 +197,10 @@
    kernels under a frozen trunk; ``channel_moments`` twice a BatchNorm
    under remat, its recompute) and the peak of
    ``torch.cuda.max_memory_allocated``, which remat must lower against
-   the plain step. Last, one f32 step of the tiny config per setting on
-   the card against the CPU, the same weights, batch and draws
-   (``check_f32_step``; micro-batches of 4 images).
+   the plain step; the plain step's device ms over every kernel and
+   torch's profiler table (``_profile``). Last, one f32 step of the tiny
+   config per setting on the card against the CPU, the same weights,
+   batch and draws (``check_f32_step``; micro-batches of 4 images).
 
 12. The roi mechanism (``model.instance_mechanism=roi``; seeded roi
    weights, objectness and ROI mask logits spread away from their ties,
@@ -222,15 +209,14 @@
    (ResNet-50, FPN 256, bf16, batch 8, 512^2, ``roi_top_k`` 64, R 28) on
    the default device, ``predict_batch`` + ``full_res_masks`` launching 9
    ``upsample_int`` and 1 ``upsample_sigmoid``, finite slots, ms per batch
-   (CUDA events) and a profiled batch by kernel class, the roi AOT
+   (CUDA events) and a profiled batch (``_profile``), the roi AOT
    artifact bit-equal to ``predict_batch``; f32 on the card (TF32 off)
    against the CPU at batch 2: proposals within 1e-5, the same slots,
    scores and masks within 1e-3 away from the pixels whose centre lies
    within 1e-5 of a box edge (``_edge_pixels``); ``bench_accuracy`` with
    roi under ``model.bn_impl`` xla and fused (``Trainer.train``, 2 steps
-   with ``per_step_launches``'s launches, every param moved; then a
-   repeated batch timed by CUDA events with the peak of
-   ``max_memory_allocated`` and a profiled step by class); ``evaluate``
+   with ``per_step_launches``'s launches, finite records, every param
+   moved); ``evaluate``
    of ``bench_accuracy`` with roi in the original frame over 32 val
    images (9 ``upsample_int`` and 1 ``upsample_sigmoid`` a batch). Every
    kernel of the roi path must have launched on it.
@@ -270,7 +256,6 @@ line is ``{"ok": true, "device": {...}}``.
 import itertools
 import json
 import math
-import re
 import shutil
 import subprocess
 import sys
@@ -918,337 +903,6 @@ def check_bn_apply_kernels(dev, gen):
 SIGMOID_SHAPES = [(20, 128, 128), (8, 20, 128, 128), (16, 20, 128, 128)]
 SIGMOID_RECORDED = (8, 20, 128, 128)
 
-# the sweep's variants of csrc/bn_stats.cu: (name, ((text replaced, by
-# what), ...))
-BN_VARIANTS = [
-    ("16 loads in flight", (("constexpr int kDepth = 8;",
-                             "constexpr int kDepth = 16;"),)),
-    ("no last block (stream and partials only)",
-     (("  // 3. the last block of each group",
-       "  if (p.eps >= 0.0f) return;\n  // 3. the last block of each group"),)),
-    ("launch only", (("  // 1. the slab's rows",
-                      "  if (p.eps >= 0.0f) return;\n  // 1. the slab's rows"),)),
-]
-
-
-def _variant_libs(source: str, variants, entries, what: str,
-                  kernel: str = "") -> dict:
-    """The ``variants`` of ``csrc/<source>``, each built (one ``nvcc`` each,
-    all at once) into its own library under ``build/<what>/``; their C
-    entry points ``entries`` bound as the port binds them. With ``kernel``,
-    prints what ``ptxas`` says of that kernel in each (registers, spills)."""
-    import ctypes
-
-    from basi_tpu_torch.kernels import _build
-
-    src = (_build.CSRC / source).read_text()
-    out = _build.BUILD_ROOT.parent / what
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for i, (name, edits) in enumerate(variants):
-        text = src
-        for old, new in edits:
-            _require(old in text, f"{what}: {name!r} finds no {old!r}")
-            text = text.replace(old, new)
-        cu, so = out / f"v{i}.cu", out / f"v{i}.so"
-        cu.write_text(text)
-        jobs.append((name, so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs = {}
-    for name, so, proc in jobs:
-        log, _ = proc.communicate()
-        _require(proc.returncode == 0, f"{what}: {name!r} did not build\n{log}")
-        if kernel:
-            print(f"{what}, {name}: {_ptxas_summary(log, kernel)}")
-        lib = ctypes.CDLL(str(so))
-        for entry in entries:
-            getattr(lib, entry).argtypes = list(_build.SIGNATURES[entry])
-        libs[name] = lib
-    return libs
-
-
-def _ptxas_summary(log: str, kernel: str) -> str:
-    """Registers and spills that ``ptxas -v`` reports for each template
-    instance of the kernel whose mangled name holds ``kernel`` (named by
-    its first integer template argument, else by its mangled arguments)."""
-    out, name = [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1] if "'" in line else ""
-        elif name and kernel in name and ("spill" in line or "Used" in line):
-            arg = re.search(r"ILi(\d+)E", name)
-            label = arg.group(1) if arg else re.sub(
-                r"^.*?" + kernel + r"\w*?I", "", name).split("EE")[0]
-            out.append(f"<{label}> {line.split(':', 1)[-1].strip()}")
-    return "; ".join(out)
-
-
-def sweep_bn_layout(dev, gen) -> None:
-    """Phase 2, last: the BN kernels' device time (``_device_ms``, sums
-    epilogue, bf16) at the step's 12 shapes and over its 53 calls: as
-    built; built with the variants of ``BN_VARIANTS``, each on the grid of
-    its own occupancy; and as built on grids of 2 to 5 blocks per SM (the
-    default takes as many as an SM holds). Then the host's time to enqueue
-    one call of each BN entry point and of the library calls."""
-    import ctypes
-
-    from basi_tpu_torch.kernels import bn_stats as B
-
-    libs = _variant_libs("bn_stats.cu", BN_VARIANTS, (
-        "basi_channel_moments_bf16", "basi_channel_dual_sums_bf16",
-        "basi_bn_stats_blocks_per_sm"), "bn_variants")
-    built = B._build.library()
-    entry = {"moments": "basi_channel_moments_bf16",
-             "dual": "basi_channel_dual_sums_bf16"}
-    totals: dict = {}
-    for (hw, c), layers in BN_SHAPES:
-        xs = _activations(gen, dev, hw, c, torch.bfloat16, loc=0.5)
-        gs = _activations(gen, dev, hw, c, torch.bfloat16)
-        inputs = {"moments": [(x, x) for x in xs], "dual": list(zip(gs, xs))}
-        nbytes = xs[0].numel() * xs[0].element_size()
-        rows = BN_BATCH * hw
-        out = torch.empty((2, c), device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        line = []
-
-        def device_ms(lib, kind, per_sm):
-            """The sums of ``lib``'s kernel on a grid of ``per_sm`` blocks
-            per SM (None: as many as ``lib``'s kernel lets an SM hold)."""
-            if per_sm is None:
-                held = ctypes.c_int(0)
-                B._build.check(lib.basi_bn_stats_blocks_per_sm(
-                    kind == "dual", 0, ctypes.byref(held)), "bn sweep")
-                per_sm = held.value
-            _, g, parts, slab, size, count = B._plan(kind, xs[0], rows, c,
-                                                     per_sm)
-            ws, counters = B._workspace(xs[0].device, stream, size, count)
-            fn = getattr(lib, entry[kind])
-
-            def call(a, b):
-                B._build.check(fn(
-                    a.data_ptr(), b.data_ptr(), ws.data_ptr(),
-                    counters.data_ptr(), out.data_ptr(), None, None, None,
-                    None, rows, c, g, parts, slab, 0, 0.0, stream),
-                    "bn sweep")
-            return _device_ms(call, inputs[kind])
-
-        runs = [(f"{per_sm or 'held'} blocks per SM", built, per_sm)
-                for per_sm in (None, 2, 3, 4, 5)]
-        runs += [(name, lib, None) for name, lib in libs.items()]
-        for name, lib, per_sm in runs:
-            dm, dd = (device_ms(lib, kind, per_sm) for kind in inputs)
-            t = totals.setdefault(name, [0.0, 0.0])
-            t[0] += layers * dm
-            t[1] += layers * dd
-            line.append(f"{name}: moments {dm * 1e3:.1f} us "
-                        f"({nbytes / dm / 1e9:.2f} TB/s), dual sums "
-                        f"{dd * 1e3:.1f} us ({2 * nbytes / dd / 1e9:.2f} TB/s)")
-        print(f"bn sweep ({BN_BATCH}x{hw}, {c}) bf16: " + "; ".join(line))
-        del xs, gs, inputs
-        torch.cuda.empty_cache()
-    for name, (dm, dd) in totals.items():
-        print(f"bn sweep, one step's 53 calls, {name}: moments {dm:.4f} ms, "
-              f"dual sums {dd:.4f} ms (device)")
-    x = _activations(gen, dev, 256, 512, torch.bfloat16, loc=0.5)[0]
-    g = torch.randn(x.shape, generator=gen).to(dev, torch.bfloat16)
-    scale, zero, one = (torch.full((512,), v, device=dev) for v in (1.0, 0.0, 1.0))
-    calls = {"channel_moments": lambda: B.channel_moments(x),
-             "bn_forward_terms": lambda: B.bn_forward_terms(x, scale, zero, 1e-5),
-             "channel_dual_sums": lambda: B.channel_dual_sums(g, x),
-             "bn_backward_terms": lambda: B.bn_backward_terms(
-                 g, x, scale, zero, one),
-             "torch.batch_norm_stats": lambda: torch.batch_norm_stats(
-                 _nchw(x), 1e-5),
-             "torch.batch_norm_backward_reduce": lambda: _bn_stats_library(
-                 g, x, zero, one)}
-    for name, fn in calls.items():
-        print(f"host time to enqueue one {name} call ({BN_BATCH}x256, 512): "
-              f"{_enqueue_us(fn):.1f} us")
-
-
-# the sweep's other tilings of csrc/upsample_int_bwd.cu (input rows per
-# band, 8-channel vectors per block); the built one is kTY 4, kSlab 4
-BWD_VARIANTS = [
-    (f"kTY {ty}, kSlab {slab}", (("constexpr int kTY = 4;",
-                                  f"constexpr int kTY = {ty};"),
-                                 ("constexpr int kSlab = 4;",
-                                  f"constexpr int kSlab = {slab};")))
-    for ty, slab in ((4, 2), (8, 1))]
-
-
-def sweep_bwd_tiles(dev, gen) -> None:
-    """Phase 2: the upsample_int backward's device time, cold, at the nine
-    training shapes and over a step's nine calls, as built and built with
-    the tilings of ``BWD_VARIANTS``; each variant's result must equal the
-    built kernel's bit for bit (the same sums in the same order)."""
-    from basi_tpu_torch.kernels import _build
-
-    entry = "basi_upsample_int_bwd_bf16"
-    built = _build.library()
-    print(f"bwd_variants, kTY 4, kSlab 4 (built): "
-          f"{_ptxas_summary(_build.build_info['log'], 'upsample_int_bwd')}")
-    libs = {"kTY 4, kSlab 4 (built)": built,
-            **_variant_libs("upsample_int_bwd.cu", BWD_VARIANTS, (entry,),
-                            "bwd_variants", "upsample_int_bwd")}
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    totals = dict.fromkeys(libs, 0.0)
-    for (n, h, w, c), f in TRAIN_RESIZES:
-        gs = _copies(torch.randn((n, f * h, f * w, c), generator=gen).to(
-            dev, torch.bfloat16))
-        line, want = [], None
-        for name, lib in libs.items():
-            gx = torch.empty((n, h, w, c), dtype=torch.bfloat16, device=dev)
-
-            def call(g, fn=getattr(lib, entry), gx=gx):
-                _build.check(fn(g.data_ptr(), gx.data_ptr(), n, h, w, c, f,
-                                stream), "bwd sweep")
-            call(gs[0])
-            torch.cuda.synchronize()
-            want = gx.clone() if want is None else want
-            _require(torch.equal(gx, want),
-                     f"bwd sweep {name} {(n, h, w, c)} x{f}: differs from "
-                     "the built kernel")
-            ms = _device_ms(call, [(g,) for g in gs])
-            totals[name] += ms
-            line.append(f"{name} {ms * 1e3:.1f} us "
-                        f"({2 * (gs[0].numel() + gx.numel()) / ms / 1e9:.2f} "
-                        "TB/s)")
-        print(f"bwd sweep {(n, h, w, c)} x{f}, cold: " + "; ".join(line))
-        del gs
-    for name, ms in totals.items():
-        print(f"bwd sweep, one step's 9 calls, {name}: {ms:.4f} ms (device)")
-
-
-# the sweep's variants of csrc/upsample_sigmoid.cu (built: registers
-# capped so that an SM holds 6 blocks) and csrc/normalize_aug.cu (built:
-# runs of 16 pixels, 128 threads a block, streaming stores)
-SIGMOID_VARIANTS = [
-    (f"{n} blocks an SM", (("constexpr int kMinBlocks = 6;",
-                            f"constexpr int kMinBlocks = {n};"),))
-    for n in (4, 8)]
-NORMALIZE_VARIANTS = [
-    ("kRun 32, 64 threads", (("constexpr int kRun = 16;",
-                              "constexpr int kRun = 32;"),
-                             ("constexpr int kThreads = 128;",
-                              "constexpr int kThreads = 64;"))),
-    ("plain stores", (("{ __stcs(p, v); }", "{ *p = v; }"),)),
-]
-
-
-def sweep_ingest_kernels(dev, gen) -> None:
-    """Phase 2: ``upsample_sigmoid`` and ``normalize_and_flip``, device time,
-    cold, at their path's shapes, as built and built with the variants of
-    ``SIGMOID_VARIANTS`` and ``NORMALIZE_VARIANTS`` (through the C entry
-    points, on preallocated outputs); each variant's result must equal the
-    built kernel's bit for bit. Prints ``ptxas``'s registers of each."""
-    from basi_tpu_torch.kernels import _build
-    from basi_tpu_torch.kernels.normalize_aug import _affine_args
-
-    built = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sweeps = [("upsample_sigmoid.cu", "sigmoid_variants", SIGMOID_VARIANTS,
-               "upsample_sigmoid_kernel", "6 blocks an SM (built)",
-               ("basi_upsample_sigmoid_f32", "basi_upsample_sigmoid_bf16")),
-              ("normalize_aug.cu", "normalize_variants", NORMALIZE_VARIANTS,
-               "normalize_flip", "kRun 16, 128 threads (built)",
-               ("basi_normalize_flip_bf16", "basi_normalize_flip_f32"))]
-    libs = {}
-    for source, what, variants, kernel, name, entries in sweeps:
-        print(f"{what}, {name}: "
-              f"{_ptxas_summary(_build.build_info['log'], kernel)}")
-        libs[source] = {name: built, **_variant_libs(
-            source, variants, entries, what, kernel)}
-
-    def sweep(what, libs, entry, inputs, out, call):
-        """Device ms of ``call(fn, x, out)`` over ``inputs`` for each lib,
-        each bit for bit equal to the first (built) one's result."""
-        line, want = [], None
-        for name, lib in libs.items():
-            fn = getattr(lib, entry)
-            call(fn, inputs[0], out)
-            torch.cuda.synchronize()
-            want = out.clone() if want is None else want
-            _require(torch.equal(out, want),
-                     f"{what} {name}: differs from the built kernel")
-            ms = _device_ms(lambda x: call(fn, x, out), [(x,) for x in inputs])
-            nbytes = inputs[0].numel() * inputs[0].element_size() + (
-                out.numel() * out.element_size())
-            line.append(f"{name} {ms * 1e3:.1f} us ({nbytes / ms / 1e9:.2f} "
-                        "TB/s)")
-        print(f"{what}, cold: " + "; ".join(line))
-
-    for shape in SIGMOID_SHAPES:
-        b = math.prod(shape[:-2])
-        logits = torch.randn(shape, generator=gen) * 4
-        out = torch.empty((b, 512, 512), device=dev)
-        for dtype, entry in ((torch.bfloat16, "basi_upsample_sigmoid_bf16"),
-                             (torch.float32, "basi_upsample_sigmoid_f32")):
-            xs = _copies(logits.to(dev, dtype))
-
-            def call(fn, x, out, b=b):
-                _build.check(fn(x.data_ptr(), out.data_ptr(), b, 128, 128,
-                                512, 512, stream), "sigmoid sweep")
-            sweep(f"sigmoid sweep {shape} {dtype} -> 512^2",
-                  libs["upsample_sigmoid.cu"], entry, xs, out, call)
-            del xs
-        del out
-    imgs = _copies(torch.randint(0, 256, (16, 512, 512, 3), generator=gen,
-                                 dtype=torch.uint8).to(dev))
-    flip = (torch.arange(16) % 3 == 0).to(dev, torch.int32)
-    affine = _affine_args((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
-    for dtype, entry in ((torch.bfloat16, "basi_normalize_flip_bf16"),
-                         (torch.float32, "basi_normalize_flip_f32")):
-        out = torch.empty(imgs[0].shape, dtype=dtype, device=dev)
-
-        def call(fn, x, out):
-            _build.check(fn(x.data_ptr(), flip.data_ptr(), out.data_ptr(), 16,
-                            512, 512, *affine, stream), "normalize sweep")
-        sweep(f"normalize sweep (16, 512, 512, 3) -> {dtype}, mixed flags",
-              libs["normalize_aug.cu"], entry, imgs, out, call)
-    del imgs
-
-
-def time_enqueue(dev, gen) -> None:
-    """Phase 2: the host's time to enqueue one call of each of the four
-    older wrappers, at one shape of their path each, and to get the stream
-    the way the wrappers did before the raw handle and the way they do."""
-    from basi_tpu_torch.kernels import _build
-    from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
-    from basi_tpu_torch.kernels.upsample_int import (
-        upsample_int,
-        upsample_int_backward,
-    )
-    from basi_tpu_torch.kernels.upsample_sigmoid import upsample_sigmoid
-
-    x = torch.randn((8, 32, 32, 256), generator=gen).to(dev, torch.bfloat16)
-    g = torch.randn((16, 128, 128, 64), generator=gen).to(dev, torch.bfloat16)
-    logits = torch.randn((8, 20, 128, 128), generator=gen).to(dev, torch.bfloat16)
-    imgs = torch.randint(0, 256, (16, 512, 512, 3), generator=gen,
-                         dtype=torch.uint8).to(dev)
-    flip = (torch.arange(16) % 3 == 0).to(dev, torch.int32)
-    calls = {
-        "upsample_int (8, 32, 32, 256) x2": lambda: upsample_int(x, 2),
-        "upsample_int_bwd (16, 32, 32, 64) x4":
-            lambda: upsample_int_backward(g, 4),
-        "upsample_sigmoid (8, 20, 128, 128) bf16 -> 512^2":
-            lambda: upsample_sigmoid(logits, (512, 512)),
-        "normalize_and_flip (16, 512, 512, 3) -> bf16":
-            lambda: normalize_and_flip(imgs, flip, out_dtype=torch.bfloat16)}
-    for name, fn in calls.items():
-        print(f"host time to enqueue one {name} call: {_enqueue_us(fn):.1f} us")
-
-    def context_stream():
-        with torch.cuda.device(dev):
-            return torch.cuda.current_stream(dev).cuda_stream
-
-    for name, fn in (("torch.cuda.device + current_stream", context_stream),
-                     ("_build.stream (raw handle)",
-                      lambda: _build.stream(dev))):
-        print(f"host time to get the stream, {name}: {_enqueue_us(fn):.2f} us")
-
-
 def smoke_weights(cfg, gen):
     """Seeded f32 state dict with the objectness bias at 0 (the focal-prior
     init fills no slot) and non-trivial BN running stats."""
@@ -1428,12 +1082,11 @@ PER_STEP = {
            "bn_apply": BN_LAYERS if impl == "fused" else 0,
            "bn_input_gradient": BN_LAYERS if impl == "fused" else 0}
     for impl in PATH_STEPS}
-TIMED_FROM, WINDOW = 5, 10
-TIMED_ORDER = ("xla", "fused", "stats", "stats", "fused", "xla")
 # The repeated batch's step size, a quarter of the preset's peak: at the
 # peak with no warmup one repeated batch spikes in every bn_impl, in f32 as
 # in bf16, at times back above its first loss.
 REPEATED_LR = 0.0025
+REPEATED_STEPS = 28
 
 
 def run_training(dev, bn_impl: str) -> dict:
@@ -1489,16 +1142,14 @@ def run_training(dev, bn_impl: str) -> dict:
     return launches
 
 
-def time_steps(dev) -> dict:
-    """Phase 5, timing: one repeated batch per ``model.bn_impl`` at
-    ``REPEATED_LR`` with no warmup; every loss of the second half must lie
-    below the first. After ``TIMED_FROM`` steps each, windows of ``WINDOW``
-    steps in ``TIMED_ORDER`` (CUDA events); returns the ms per step of each
-    window."""
+def repeated_batch_learns(dev) -> None:
+    """Phase 5: one repeated batch per ``model.bn_impl``, ``REPEATED_STEPS``
+    steps at ``REPEATED_LR`` with no warmup, then one more ``xla`` step in
+    ``strided_cotangents``; every loss of the second half must lie below
+    the first."""
     from basi_tpu_torch.config import get_config
     from basi_tpu_torch.train.loop import Trainer
 
-    runs = {}
     for impl in PATH_STEPS:
         cfg = get_config("bench_accuracy", TRAIN_OVERRIDES + [
             f"model.bn_impl={impl}", "train.warmup_steps=0",
@@ -1507,26 +1158,10 @@ def time_steps(dev) -> dict:
         feed = trainer.feed.epoch(0)
         batch = next(feed)
         feed.close()  # stops the feed thread: nothing runs beside the steps
-        runs[impl] = (trainer, batch, [])
-    for trainer, batch, losses in runs.values():
-        for _ in range(TIMED_FROM):
-            losses.append(trainer.train_step(trainer.state, batch)["loss"])
-    torch.cuda.synchronize()
-    windows = {impl: [] for impl in runs}
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    for impl in TIMED_ORDER:
-        trainer, batch, losses = runs[impl]
-        start.record()
-        for _ in range(WINDOW):
-            losses.append(trainer.train_step(trainer.state, batch)["loss"])
-        end.record()
-        torch.cuda.synchronize()
-        windows[impl].append(start.elapsed_time(end) / WINDOW)
-    device_ms = {impl: profile_steps(trainer, batch, losses, impl)
-                 for impl, (trainer, batch, losses) in runs.items()}
-    strided_cotangents(dev, *runs["xla"])
-    n = runs["xla"][0].cfg.data.batch_size
-    for impl, (trainer, _, losses) in runs.items():
+        losses = [trainer.train_step(trainer.state, batch)["loss"]
+                  for _ in range(REPEATED_STEPS)]
+        if impl == "xla":
+            strided_cotangents(dev, trainer, batch, losses)
         losses = [float(v) for v in losses]
         print(f"repeated batch, bn_impl={impl}, {len(losses)} steps, losses "
               f"{[round(v, 4) for v in losses]}")
@@ -1534,17 +1169,8 @@ def time_steps(dev) -> dict:
                  and max(losses[len(losses) // 2:]) < losses[0],
                  f"bn_impl={impl}: the loss did not fall over the "
                  "repeated-batch steps")
-        ms = sum(windows[impl]) / len(windows[impl])
-        print(f"train step bn_impl={impl} (bf16, batch {n}, "
-              f"{trainer.cfg.model.image_size}^2, windows of {WINDOW} steps "
-              f"in turns {'/'.join(TIMED_ORDER)}): "
-              f"{' and '.join(f'{w:.3f}' for w in windows[impl])} ms/step, "
-              f"mean {ms:.3f} ms/step = {n * 1000.0 / ms:.1f} imgs/s; "
-              f"device busy {100 * device_ms[impl] / ms:.1f}% (the profile's "
-              f"device ms over this step time)")
-    del runs
-    torch.cuda.empty_cache()
-    return windows
+        del trainer, batch
+        torch.cuda.empty_cache()
 
 
 # batch of the f32 check: the CPU's float64 reference fits at full width
@@ -1600,75 +1226,29 @@ def check_bn_impls_agree(dev) -> None:
                  f"bn_impl={impl}: f32 step far from the float64 one")
 
 
-PROFILED_STEPS = 3
-# device kernels by class: the first class one of whose fragments the
-# kernel's name holds
-KERNEL_CLASSES = [
-    ("bn_stats (ours)", ("bn_stats",)),
-    ("bn_apply and bn_input_gradient (ours)", ("basi_bn_",)),
-    ("upsample_int and its backward (ours)", ("upsample_int",)),
-    ("normalize_and_flip (ours)", ("normalize_flip",)),
-    ("BatchNorm (framework)", ("batch_norm",)),
-    ("convolutions and GEMMs (cuDNN, cuBLAS)",
-     ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad", "dgrad", "fprop")),
-    ("GroupNorm", ("group_norm", "groupnorm")),
-    ("optimizer (foreach)", ("foreach", "multi_tensor")),
-    ("max-pool", ("max_pool", "maxpool")),
-    ("reductions, sort, gathers", ("reduce", "sort", "scan", "topk", "gather",
-                                   "index")),
-    ("copies and casts", ("copy", "cat", "fill")),
-    ("elementwise", ("elementwise",)),
-]
-
-
-def _kernel_class(name: str) -> str:
-    low = name.lower()
-    for cls, frags in KERNEL_CLASSES:
-        if any(f in low for f in frags):
-            return cls
-    return "other"
-
-
-def _profile_by_class(fn, label: str, reps: int = PROFILED_STEPS) -> float:
-    """``torch.profiler`` over ``reps`` calls of ``fn``: device ms and
-    launches per call by kernel class, and the busy share of the host's
-    time; returns the device ms per call."""
+def _profile(fn, label: str) -> None:
+    """``torch.profiler`` over 3 calls of ``fn``: the device ms a call over
+    every device kernel (the device's copies of the ``record_function``
+    ranges are not kernels), and torch's own table of the events by
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    reps = 3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    by_class: dict = {}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or "#" in evt.key:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        ms, n = by_class.get(_kernel_class(evt.key), (0.0, 0))
-        by_class[_kernel_class(evt.key)] = (ms + us / 1e3, n + evt.count)
-    total = sum(ms for ms, _ in by_class.values()) / reps
-    launches = sum(n for _, n in by_class.values()) // reps
-    print(f"profile {label}, {reps} calls: host {wall:.3f} ms/call with the "
-          f"profiler on; device {total:.3f} ms/call in {launches} "
-          f"launches/call (busy {100 * total / wall:.1f}%)")
-    for cls, (ms, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {ms / reps:9.3f} ms {n // reps:6d} launches  {cls}")
-    return total
-
-
-def profile_steps(trainer, batch, losses, bn_impl: str) -> float:
-    """Phase 5: ``torch.profiler`` over ``PROFILED_STEPS`` repeated-batch
-    steps (``_profile_by_class``); returns the device ms per step."""
-    return _profile_by_class(
-        lambda: losses.append(trainer.train_step(trainer.state, batch)["loss"]),
-        f"bn_impl={bn_impl}, repeated-batch steps", PROFILED_STEPS)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    launches = sum(e.count for e in kernels) // reps
+    print(f"profile {label}, {reps} calls: device {ms:.3f} ms/call in "
+          f"{launches} kernels/call")
+    print(events.table(sort_by="self_device_time_total", row_limit=15))
 
 
 def strided_cotangents(dev, trainer, batch, losses) -> None:
@@ -1970,7 +1550,7 @@ def profile_eval_batch(inf, ds) -> None:
              if e.name.startswith("eval.")]
     by_range: dict = {}
     for e in events:
-        if e.name.startswith("eval.") or "#" in e.name:
+        if e.is_user_annotation:
             continue
         t = e.time_range.start
         inside = [sp for sp in spans if sp[0] <= t < sp[1]]
@@ -2961,12 +2541,9 @@ def profile_infer_window(dev) -> None:
         t0 = time.perf_counter()
         float(benchmark.infer_window(inf, batches))
         wall = (time.perf_counter() - t0) * 1e3
-    device_ms = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or "#" in evt.key:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        device_ms += (evt.self_cuda_time_total if us is None else us) / 1e3
+    device_ms = sum(evt.self_device_time_total for evt in prof.key_averages()
+                    if evt.device_type == DeviceType.CUDA
+                    and not evt.is_user_annotation) / 1e3
     n = BENCH_PROFILED_BATCHES
     print(f"bench infer window, profiled ({n} batches of 8): host "
           f"{wall / n:.3f} ms/batch with the profiler on, device "
@@ -3488,7 +3065,8 @@ def time_settings(dev) -> dict:
     ``SETTING_WARMUP`` steps, then ``SETTING_STEPS`` timed by CUDA events
     with the launches counted and the peak of ``max_memory_allocated``;
     the losses finite, the launches ``per_step_launches``'s, remat's peak
-    below the plain step's. Returns {setting: (ms, peak GiB)}."""
+    below the plain step's; the first plain run's steps profiled
+    (``_profile``). Returns {setting: (ms, peak GiB)}."""
     import gc
 
     from basi_tpu_torch.config import get_config
@@ -3529,7 +3107,8 @@ def time_settings(dev) -> dict:
                  f"{launches}")
         out[name] = (ms, peak)
         if name == "plain":
-            profile_steps(trainer, batch, [], "xla, train_multiscale_fused")
+            _profile(lambda: trainer.train_step(trainer.state, batch),
+                     "xla, train_multiscale_fused, plain steps")
         del trainer, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -3576,7 +3155,6 @@ ROI = ["model.instance_mechanism=roi"]
 ROI_SERVE_F32_BATCH = 2  # the CPU's f32 forward at full width
 ROI_TRAIN = ["data.synthetic_n=64"]  # 48 train scenes
 ROI_TRAIN_STEPS = 2
-ROI_WARMUP, ROI_TIMED = 2, 5
 ROI_EVAL = ["data.synthetic_n=128", "infer.ap_at_original=true"]  # 32 val
 ROI_EDGE = 1e-5
 
@@ -3622,7 +3200,7 @@ def run_roi_serving(dev, gen) -> dict:
     with the roi mechanism (ResNet-50, FPN 256, bf16, batch 8, 512^2,
     ``roi_top_k`` 64, R 28) on the default device: 9 ``upsample_int`` and
     1 ``upsample_sigmoid`` launch and nothing else, finite slots, some
-    filled; ms per batch (CUDA events) and a profiled batch by class; the
+    filled; ms per batch (CUDA events) and a profiled batch; the
     AOT artifact equal to ``predict_batch`` bit for bit. Returns the
     counted launches."""
     import os
@@ -3668,9 +3246,7 @@ def run_roi_serving(dev, gen) -> dict:
     print(f"roi predict_batch: {ms:.3f} ms/batch = {n * 1000.0 / ms:.1f} "
           f"imgs/s (CUDA events, 10 batches); slots filled {filled} of "
           f"{n * k}")
-    dev_ms = _profile_by_class(lambda: inf.predict_batch(batch),
-                               "roi predict_batch")
-    print(f"roi predict_batch device time {dev_ms:.3f} ms/batch")
+    _profile(lambda: inf.predict_batch(batch), "roi predict_batch")
 
     root = tempfile.mkdtemp(prefix="basi_roi_aot_")
     try:
@@ -3746,17 +3322,13 @@ def run_roi_training(dev) -> dict:
     xla and once under fused: ``Trainer.train`` on the default device
     takes ``ROI_TRAIN_STEPS`` steps with their launches
     (``per_step_launches``: the mechanism adds no kernel), finite losses
-    with the box term, every param moved; then one repeated batch,
-    ``ROI_WARMUP`` steps, ``ROI_TIMED`` timed by CUDA events with the peak
-    of ``max_memory_allocated``, and a profiled step by class. Returns
-    {bn_impl: launches}."""
+    with the box term, every param moved. Returns {bn_impl: launches}."""
     import gc
 
     from basi_tpu_torch.config import get_config
     from basi_tpu_torch.train.loop import Trainer
 
     out = {}
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     for impl in ("xla", "fused"):
         cfg = get_config("bench_accuracy", TRAIN_OVERRIDES + ROI + ROI_TRAIN
                          + [f"model.bn_impl={impl}"])
@@ -3786,33 +3358,8 @@ def run_roi_training(dev) -> dict:
         n_p = _moved(params0, dict(model.named_parameters()))
         _require(n_p == len(params0),
                  f"roi: {n_p}/{len(params0)} params moved")
-        feed = trainer.feed.epoch(0)
-        batch = next(feed)
-        feed.close()
-        losses = [trainer.train_step(trainer.state, batch)["loss"]
-                  for _ in range(ROI_WARMUP)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        start.record()
-        for _ in range(ROI_TIMED):
-            losses.append(trainer.train_step(trainer.state, batch)["loss"])
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / ROI_TIMED
-        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        _require(all(np.isfinite([float(v) for v in losses])),
-                 "roi: a repeated-batch loss is not finite")
-        print(f"roi train step bn_impl={impl} (bf16, batch "
-              f"{cfg.data.batch_size}, {cfg.model.image_size}^2, repeated "
-              f"batch, {ROI_TIMED} steps, CUDA events): {ms:.3f} ms/step = "
-              f"{cfg.data.batch_size * 1000.0 / ms:.1f} imgs/s; peak "
-              f"{peak:.3f} GiB allocated")
-        dev_ms = profile_steps(trainer, batch, losses, f"{impl}, roi")
-        print(f"roi train step bn_impl={impl}: device busy "
-              f"{100 * dev_ms / ms:.1f}% (the profile's device ms over the "
-              f"event step time)")
         out[impl] = launches
-        del trainer, model, params0, batch
+        del trainer, model, params0
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -3956,12 +3503,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     ui, us = check_kernels(dev, gen)
     ub, nf = check_training_kernels(dev, gen)
-    sweep_bwd_tiles(dev, gen)
-    sweep_ingest_kernels(dev, gen)
-    time_enqueue(dev, gen)
     cm, cds = check_bn_kernels(dev, gen)
     ba, big = check_bn_apply_kernels(dev, gen)
-    sweep_bn_layout(dev, gen)
 
     cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"])
     sd = smoke_weights(cfg, gen)
@@ -3969,7 +3512,7 @@ def main() -> int:
     check_f32(cfg, sd, dev, gen)
     del sd
     train_launches = {impl: run_training(dev, impl) for impl in PATH_STEPS}
-    time_steps(dev)
+    repeated_batch_learns(dev)
     check_bn_impls_agree(dev)
     for impl in ("xla", "fused"):
         check_f32_step(dev, impl)
