@@ -9,6 +9,11 @@ def launch_counters() -> dict:
         channel_dual_sums,
         channel_moments,
     )
+    from basi_tpu_torch.kernels.dwconv import (
+        dwconv_forward,
+        dwconv_input_grad,
+        dwconv_weight_grad,
+    )
     from basi_tpu_torch.kernels.normalize_aug import normalize_and_flip
     from basi_tpu_torch.kernels.upsample_int import (
         upsample_int,
@@ -23,4 +28,7 @@ def launch_counters() -> dict:
             "channel_moments": channel_moments,
             "channel_dual_sums": channel_dual_sums,
             "bn_apply": bn_apply,
-            "bn_input_gradient": bn_input_gradient}
+            "bn_input_gradient": bn_input_gradient,
+            "dwconv_forward": dwconv_forward,
+            "dwconv_input_grad": dwconv_input_grad,
+            "dwconv_weight_grad": dwconv_weight_grad}

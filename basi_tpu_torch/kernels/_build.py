@@ -55,6 +55,16 @@ SIGNATURES = {
     # grad, f32, vec, threads, blocks (out)
     "basi_bn_apply_blocks_per_sm": (_I, _I, _I, _I,
                                     ctypes.POINTER(ctypes.c_int)),
+    # x (or g), w, b, y (or dx), n, h, w, c, channels a block, blocks,
+    # flip, stream
+    **{name: (_P,) * 4 + (_I,) * 7 + (_P,)
+       for name in ("basi_dwconv7x7_bf16", "basi_dwconv7x7_f32")},
+    # g, x, partials, dw, db, n, h, w, c, channels a block, blocks, stream
+    **{name: (_P,) * 5 + (_I,) * 6 + (_P,)
+       for name in ("basi_dwconv7x7_wgrad_bf16", "basi_dwconv7x7_wgrad_f32")},
+    # weight gradient, f32, channels a block, blocks (out)
+    "basi_dwconv7x7_blocks_per_sm": (_I, _I, _I,
+                                     ctypes.POINTER(ctypes.c_int)),
 }
 
 _lock = threading.Lock()

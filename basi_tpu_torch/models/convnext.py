@@ -10,7 +10,9 @@ names are the published code's (``downsample_layers``, ``stages``,
 - Between stages: a channels-first LayerNorm, then a 2x2 conv with stride 2
   (bias).
 - Block: ``x + gamma * pwconv2(GELU(pwconv1(LN(dwconv7x7(x)))))``, the
-  depthwise 7x7 conv with padding 3 and bias, LN over channels (eps 1e-6),
+  depthwise 7x7 conv with padding 3 and bias (``DepthwiseConv7x7``: the
+  hand-written kernels of ``kernels/dwconv.py`` on the card, ``F.conv2d``
+  on the CPU), LN over channels (eps 1e-6),
   the Linears C -> 4C -> C with bias, exact (erf) GELU, the layer scale
   ``gamma`` per channel (1e-6 at init). No stochastic depth: the branch is
   always computed and always kept.
@@ -36,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basi_tpu_torch.kernels.dwconv import dwconv7x7
 from basi_tpu_torch.models.layers import Conv2d
 from basi_tpu_torch.utils.profiling import span
 
@@ -73,10 +76,21 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+class DepthwiseConv7x7(Conv2d):
+    """The block's depthwise 7x7 conv (padding 3, bias): ``Conv2d``'s
+    parameters, names and init, computed by ``kernels/dwconv.py``."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, dim, 7, padding=3, groups=dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dwconv7x7(x, self.weight, self.bias)
+
+
 class Block(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.dwconv = Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.dwconv = DepthwiseConv7x7(dim)
         self.norm = LayerNorm(dim, eps=LN_EPS)
         self.pwconv1 = Linear(dim, 4 * dim)
         self.pwconv2 = Linear(4 * dim, dim)

@@ -896,6 +896,134 @@ def check_bn_apply_kernels(dev, gen):
     return recs["bn_apply"], recs["bn_input_gradient"]
 
 
+# (N, C, H, W) of ConvNeXt-B's depthwise convs at the cell's batch and
+# 512^2, and the blocks of each (3, 3, 27, 3: 36 calls a forward)
+DWCONV_SHAPES = [((64, 128, 128, 128), 3), ((64, 256, 64, 64), 3),
+                 ((64, 512, 32, 32), 27), ((64, 1024, 16, 16), 3)]
+
+
+def dwconv_tolerance(truth: torch.Tensor, absum: torch.Tensor,
+                     depth: int) -> torch.Tensor:
+    """What a kernel of ``kernels/dwconv.py`` may differ from the exact
+    (f64) result ``truth`` of its bf16 inputs: one bf16 ulp of it (the one
+    rounding, and a binade crossed) plus ``depth`` f32 roundings of the sum
+    of the terms' magnitudes ``absum``, f32 sums at most ``depth`` terms
+    deep."""
+    return _bf16_ulp(truth) + depth * 2.0 ** -24 * absum
+
+
+def dwconv_truth(x, w, b, g):
+    """(y, dx, dw, db) of the depthwise conv in f64 from bf16 ``x``, ``w``,
+    ``b`` and the cotangent ``g``, and the same of the terms' magnitudes."""
+    from basi_tpu_torch.kernels import dwconv as D
+
+    def parts(x, w, b, g):
+        y = D.dwconv_forward_reference(x, w, b)
+        dx = D.dwconv_input_grad_reference(g, w)
+        dw, db = D.dwconv_weight_grad_reference(g, x)
+        return y, dx, dw, db
+
+    x, w, b, g = (t.double() for t in (x, w, b, g))
+    return (parts(x, w, b, g),
+            parts(x.abs(), w.abs(), b.abs(), g.abs()))
+
+
+def check_dwconv_kernels(dev, gen):
+    """Phase 2, ConvNeXt-B's depthwise 7x7 convolution (``kernels/
+    dwconv.py``): at the four stage shapes of the cell (batch 64, bf16)
+    the forward, the input gradient and the weight and bias gradients
+    against the f64 result of the same bf16 inputs within
+    ``dwconv_tolerance``, and two launches bit for bit equal; then each
+    timed cold (CUDA events and device time) beside the plain version,
+    which on the card is the library's call (``F.conv2d`` with
+    ``groups=C``; ``torch.ops.aten.convolution_backward`` for the
+    gradients), and the bound: 4 bytes and 98 f32 operations an element
+    for each of the three (the forward reads x and writes y, the input
+    gradient reads g and writes dx, the weight gradient reads g and x).
+    Returns the per-step records (36 calls of each)."""
+    from basi_tpu_torch.kernels import dwconv as D
+
+    names = ("dwconv_forward", "dwconv_input_grad", "dwconv_weight_grad")
+    recs = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "max_abs_err": 0.0, "bytes": 0.0,
+                "flops": 0.0} for k in names}
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+    for (n, c, h, w), blocks in DWCONV_SHAPES:
+        def act():
+            return torch.randn((n, h, w, c), generator=dgen, device=dev
+                               ).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+        x, g = act(), act()
+        wt = (torch.randn((c, 1, 7, 7), generator=dgen, device=dev)
+              / 7).to(torch.bfloat16)
+        b = torch.randn((c,), generator=dgen, device=dev).to(torch.bfloat16)
+        what = f"dwconv ({n}, {c}, {h}, {w}) bf16"
+        got = (D.dwconv_forward(x, wt, b), D.dwconv_input_grad(g, wt),
+               *D.dwconv_weight_grad(g, x))
+        again = (D.dwconv_forward(x, wt, b), D.dwconv_input_grad(g, wt),
+                 *D.dwconv_weight_grad(g, x))
+        (truth, absum) = dwconv_truth(x, wt, b, g)
+        depth = D.weight_grad_depth(x.shape, *D.launch_plan(True, x))
+        errs = []
+        for name, a, a2, t, s, dep in zip(
+                ("y", "dx", "dw", "db"), got, again, truth, absum,
+                (50, 50, depth, depth)):
+            _require(torch.equal(a, a2), f"{what}: {name} of two launches "
+                     "differ")
+            err = (a.double() - t).abs()
+            _require(bool((err <= dwconv_tolerance(t, s, dep)).all()),
+                     f"{what}: {name} beyond its tolerance (max diff "
+                     f"{float(err.max())})")
+            errs.append(float(err.max()))
+        del got, again, truth, absum
+        for name, e in zip(names, (errs[0], errs[1], max(errs[2:]))):
+            recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], e)
+        xs, gs = _copies(x), _copies(g)
+        elems = n * c * h * w
+
+        def library(mask):
+            return lambda g, x: torch.ops.aten.convolution_backward(
+                g, x, wt, [c], [1, 1], [3, 3], [1, 1], False, [0, 0], c, mask)
+
+        cases = {
+            "dwconv_forward": (
+                lambda g, x: D.dwconv_forward(x, wt, b),
+                lambda g, x: F.conv2d(x, wt, b, padding=3, groups=c)),
+            "dwconv_input_grad": (lambda g, x: D.dwconv_input_grad(g, wt),
+                                  library([True, False, False])),
+            "dwconv_weight_grad": (D.dwconv_weight_grad,
+                                   library([False, True, True]))}
+        line = []
+        for name, (fn, lib_fn) in cases.items():
+            args = list(zip(gs, xs))
+            ms = _time_cold_ms(fn, args)
+            dev_ms = _device_ms(fn, args)
+            lib = _time_cold_ms(lib_fn, args)
+            io_bytes, flops = 4 * elems + 100 * c, 98 * elems
+            bound, _ = _bound(io_bytes, flops)
+            line.append(f"{name} {ms:.4f} ms ({dev_ms:.4f} device, "
+                        f"{100 * bound / dev_ms:.0f}% of the bound "
+                        f"{bound:.4f}), library (the plain version) "
+                        f"{lib:.4f}")
+            r = recs[name]
+            for key, v in (("ms", ms), ("device_ms", dev_ms),
+                           ("plain_ms", lib), ("library_ms", lib),
+                           ("bytes", io_bytes), ("flops", flops)):
+                r[key] += blocks * v
+        print(f"{what}, {blocks} blocks, within the tolerance of the f64 "
+              f"result (max diff y, dx, dw, db {errs}): {'; '.join(line)}")
+        del x, g, xs, gs, cases
+        torch.cuda.empty_cache()
+    for name, r in recs.items():
+        bound = _bound(r["bytes"], r["flops"])[0]
+        print(f"{name}, one step's 36 calls at batch 64 (bf16), cold: "
+              f"kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} device, "
+              f"{100 * bound / r['device_ms']:.1f}% of the bound), library "
+              f"(the plain version) {r['library_ms']:.4f} ms, bound "
+              f"{bound:.4f} ms ({r['bytes'] / 1e9:.3f} GB)")
+    return tuple(recs[k] for k in names)
+
+
 # (masks, h, w) of upsample_sigmoid's calls on the path, to 512^2: the
 # slots of one served answer, of an eval batch at the default
 # infer.batch_size (8) and of one under bench_accuracy (16); the times of
@@ -3408,7 +3536,7 @@ CONVNEXT = ["model.backbone=convnext_base", "train.optimizer=adamw",
             "train.lr=0.0001", "train.weight_decay=0.05"]
 
 
-def run_convnext(dev, gen) -> None:
+def run_convnext(dev, gen) -> dict:
     """Phase 13: the ConvNeXt-B trunk under the roi head on the default
     device. Serving: ``predict_batch`` of one batch of 8 at
     ``val_v4-8_ap`` (bf16, 512^2), 9 ``upsample_int`` launches and no
@@ -3442,7 +3570,8 @@ def run_convnext(dev, gen) -> None:
     print(f"convnext_base roi serving (bf16, batch {n}, {size}^2): "
           f"{start.elapsed_time(end):.3f} ms a batch; launches "
           f"{ {a: b for a, b in launches.items() if b} }")
-    _require(launches == dict(_zero_counts(), upsample_int=9),
+    _require(launches == dict(_zero_counts(), upsample_int=9,
+                              dwconv_forward=36),
              f"convnext serving launches {launches}")
     _require(bool(torch.isfinite(scores.float()).all())
              and bool(torch.isfinite(masks.float()).all()),
@@ -3456,10 +3585,12 @@ def run_convnext(dev, gen) -> None:
     params0 = {k: p.detach().clone() for k, p in model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    _zero_kernel_counts()
     t0 = time.perf_counter()
     trainer.train(max_steps=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = _kernel_counts()
     recs = trainer.records
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f"convnext_base roi training (bf16, AdamW, batch "
@@ -3469,12 +3600,19 @@ def run_convnext(dev, gen) -> None:
     _require(len(recs) == 2 and all(np.isfinite(v) for r in recs
                                     for v in r.values()),
              f"convnext [train] records {recs}")
+    # the 36 depthwise convs a step: a forward, an input gradient and a
+    # weight gradient (two kernels) each, on the port's kernels alone
+    _require({k: v for k, v in launches.items() if k.startswith("dwconv")}
+             == {"dwconv_forward": 72, "dwconv_input_grad": 72,
+                 "dwconv_weight_grad": 144},
+             f"convnext training launches {launches}")
     n_p = _moved(params0, dict(model.named_parameters()))
     _require(n_p == len(params0), f"convnext: {n_p}/{len(params0)} params "
              "moved")
     del trainer, model, params0
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -3505,6 +3643,7 @@ def main() -> int:
     ub, nf = check_training_kernels(dev, gen)
     cm, cds = check_bn_kernels(dev, gen)
     ba, big = check_bn_apply_kernels(dev, gen)
+    dwf, dwi, dww = check_dwconv_kernels(dev, gen)
 
     cfg = get_config("val_v4-8_ap", ["data.dataset=synthetic"])
     sd = smoke_weights(cfg, gen)
@@ -3553,7 +3692,7 @@ def main() -> int:
     print(f"phase 12 (the roi mechanism) took "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    run_convnext(dev, gen)
+    dw_launches = run_convnext(dev, gen)
     print(f"phase 13 (the ConvNeXt trunk) took "
           f"{time.perf_counter() - t0:.1f} s")
     # every kernel of the roi path launched on it
@@ -3595,6 +3734,14 @@ def main() -> int:
             ("bn_input_gradient", "basi_tpu_torch/csrc/bn_apply.cu",
              "basi_tpu/models/norm.py:102 (XLA-fused; no Pallas kernel)", big,
              train_launches["fused"]["bn_input_gradient"])]
+    # ConvNeXt's depthwise conv: no TPU kernel (the JAX package has no
+    # ConvNeXt); its launches are phase 13's two training steps
+    rows += [(name, "basi_tpu_torch/csrc/dwconv.cu",
+              "none: cuDNN's depthwise conv behind F.conv2d(groups=C)", r,
+              dw_launches[name])
+             for name, r in (("dwconv_forward", dwf),
+                             ("dwconv_input_grad", dwi),
+                             ("dwconv_weight_grad", dww))]
     kernels = []
     for name, src, rep, r, n in rows:
         bound, by = _bound(r["bytes"], r["flops"])

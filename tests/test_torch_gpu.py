@@ -1772,6 +1772,141 @@ def test_gpu_convnext_trunk_makes_no_layout_copy():
         f in k.lower() for f in ("copy", "transpose", "nchwtonhwc",
                                  "nhwctonchw", "permute", "contiguous"))]
     assert kernels and not layout, layout
+    # the depthwise convs run the port's kernel alone, the library's none
+    assert sum("basi_dwconv7x7_kernel" in k for k in kernels) == 36
+    assert not [k for k in kernels if "c1_k1" in k or "depthwise" in k]
     assert spans["convnext.dwconv"]["calls"] == 36
     assert spans["convnext.mlp"]["calls"] == 36
     assert spans["convnext.norm"]["calls"] == 44
+
+
+# --- ConvNeXt's depthwise 7x7 convolution (kernels/dwconv.py) ----------------
+
+def _ulp(t: torch.Tensor, dtype) -> torch.Tensor:
+    """One ulp of ``dtype`` (bf16: 8 significant bits, f32: 24) at each
+    value of f64 ``t``, built from its exponent bits."""
+    _, e = torch.frexp(t.abs().clamp_min(2.0 ** -126))
+    bits = 8 if dtype == torch.bfloat16 else 24
+    return ((e.to(torch.int64) + (1023 - bits)) << 52).view(torch.float64)
+
+
+def _dwconv_inputs(shape, dtype, dev, seed=0):
+    n, c, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def act():
+        return torch.randn((n, h, w, c), generator=gen, device=dev).to(
+            dtype).permute(0, 3, 1, 2)
+
+    x, g = act(), act()
+    wt = (torch.randn((c, 1, 7, 7), generator=gen, device=dev) / 7).to(dtype)
+    b = torch.randn((c,), generator=gen, device=dev).to(dtype)
+    return x, g, wt, b
+
+
+def _dwconv_f64(D, x, g, wt, b):
+    """(y, dx, dw, db) by the plain versions in f64 from the same inputs."""
+    x, g, wt, b = (t.double() for t in (x, g, wt, b))
+    return (D.dwconv_forward_reference(x, wt, b),
+            D.dwconv_input_grad_reference(g, wt),
+            *D.dwconv_weight_grad_reference(g, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 128, 128, 128), torch.bfloat16), ((2, 256, 64, 64), torch.bfloat16),
+    ((2, 512, 32, 32), torch.bfloat16), ((2, 1024, 16, 16), torch.bfloat16),
+    ((3, 24, 37, 45), torch.bfloat16), ((2, 16, 13, 11), torch.bfloat16),
+    ((2, 128, 40, 33), torch.float32), ((2, 64, 16, 16), torch.float32)])
+def test_gpu_dwconv_kernels_match_plain_in_f64(shape, dtype):
+    """The depthwise kernels at ConvNeXt-B's four stage shapes (batch 2),
+    at ragged tile edges (16 x 16 tiles over 37 x 45 and 13 x 11)
+    and in f32: y, dx, dw and db against the plain versions in f64 on the
+    same inputs. Each value within one ulp of its dtype at the f64 result
+    (the one rounding, a binade crossed) plus ``depth`` f32 roundings of
+    the sum of the terms' magnitudes: 50 for y and dx (49 FMAs from the
+    bias or 0), and for dw and db ``weight_grad_depth``: a thread's 32
+    outputs a tile over its block's list, the block's 8 threads a channel
+    and the sets of partials.
+    Two calls agree bit for bit; the launch counts advance by 1, 1 and 2."""
+    from basi_tpu_torch.kernels import dwconv as D
+
+    dev = _cuda()
+    x, g, wt, b = _dwconv_inputs(shape, dtype, dev)
+    n0 = (D.dwconv_forward.launches, D.dwconv_input_grad.launches,
+          D.dwconv_weight_grad.launches)
+    got = (D.dwconv_forward(x, wt, b), D.dwconv_input_grad(g, wt),
+           *D.dwconv_weight_grad(g, x))
+    assert (D.dwconv_forward.launches - n0[0],
+            D.dwconv_input_grad.launches - n0[1],
+            D.dwconv_weight_grad.launches - n0[2]) == (1, 1, 2)
+    again = (D.dwconv_forward(x, wt, b), D.dwconv_input_grad(g, wt),
+             *D.dwconv_weight_grad(g, x))
+    want = _dwconv_f64(D, x, g, wt, b)
+    absum = _dwconv_f64(D, x.abs(), g.abs(), wt.abs(), b.abs())
+    depth = D.weight_grad_depth(shape, *D.launch_plan(True, x))
+    for name, a, a2, t, s, d in zip(("y", "dx", "dw", "db"), got, again,
+                                    want, absum, (50, 50, depth, depth)):
+        assert a.dtype == dtype and a.shape == t.shape, name
+        assert torch.equal(a, a2), f"{name}: two calls differ"
+        if name in ("y", "dx"):
+            assert a.is_contiguous(memory_format=torch.channels_last), name
+        err = (a.double() - t).abs()
+        tol = _ulp(t, dtype) + d * 2.0 ** -24 * s
+        assert bool((err <= tol).all()), (
+            f"{name}: {int((err > tol).sum())} values beyond the tolerance, "
+            f"max diff {float(err.max())}")
+
+
+@pytest.mark.gpu
+def test_gpu_dwconv7x7_autograd_is_the_kernels():
+    """``dwconv7x7`` on the card with f32 masters and bf16 activations, as
+    ``DepthwiseConv7x7`` calls it: the output and the three gradients equal
+    the kernel wrappers' on the bf16-cast taps bit for bit (dw and db cast
+    to f32 once), and a forward and backward launch 1 + 1 + 2 kernels."""
+    from basi_tpu_torch.kernels import dwconv as D
+
+    dev = _cuda()
+    x, g, wt, b = _dwconv_inputs((2, 64, 24, 24), torch.bfloat16, dev, 1)
+    w32 = (wt.float() * 1.001).requires_grad_()
+    b32 = (b.float() * 1.001).requires_grad_()
+    xr = x.clone().requires_grad_()
+    counters = (D.dwconv_forward, D.dwconv_input_grad, D.dwconv_weight_grad)
+    n0 = [f.launches for f in counters]
+    y = D.dwconv7x7(xr, w32, b32)
+    y.backward(g)
+    assert [f.launches - k for f, k in zip(counters, n0)] == [1, 1, 2]
+    wb, bb = w32.detach().to(torch.bfloat16), b32.detach().to(torch.bfloat16)
+    dw, db = D.dwconv_weight_grad(g, x)
+    assert torch.equal(y, D.dwconv_forward(x, wb, bb))
+    assert torch.equal(xr.grad, D.dwconv_input_grad(g, wb))
+    assert w32.grad.dtype == torch.float32 and torch.equal(w32.grad,
+                                                           dw.float())
+    assert torch.equal(b32.grad, db.float())
+
+
+@pytest.mark.gpu
+def test_gpu_dwconv_refuses_what_the_kernels_cannot_take():
+    """Another dtype, ``contiguous_format``, C not a multiple of 8, taps in
+    another dtype, a cotangent of another shape: each raises; an empty
+    batch launches nothing."""
+    from basi_tpu_torch.kernels import dwconv as D
+
+    dev = _cuda()
+    x, g, wt, b = _dwconv_inputs((2, 16, 12, 12), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        D.dwconv_forward(x.half(), wt.half(), b.half())
+    with pytest.raises(ValueError, match="channels_last"):
+        D.dwconv_forward(x.contiguous(), wt, b)
+    with pytest.raises(ValueError, match="channels_last"):
+        D.dwconv_weight_grad(g.contiguous(), x)
+    x12, _, w12, b12 = _dwconv_inputs((2, 12, 12, 12), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        D.dwconv_forward(x12, w12, b12)
+    with pytest.raises(ValueError, match="weight"):
+        D.dwconv_forward(x, wt.float(), b)
+    with pytest.raises(ValueError, match="does not match"):
+        D.dwconv_weight_grad(g[:, :, :6], x)
+    n0 = D.dwconv_forward.launches
+    assert D.dwconv_forward(x[:0], wt, b).shape == (0, 16, 12, 12)
+    assert D.dwconv_forward.launches == n0
